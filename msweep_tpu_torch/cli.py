@@ -1,0 +1,346 @@
+"""Command-line driver of the port: the mSWEEP-compatible CLI, rcg path
+(counterpart of msweep_tpu/cli.py, whose flag surface it reuses).
+
+    python -m msweep_tpu_torch.cli --themisto-1 fwd.aln --themisto-2 rev.aln \\
+        -i clustering.txt -o sample1 [--backend cuda|cpu]
+
+`--backend` defaults to cuda and fails when no GPU is present; a CPU run
+asks for `--backend cpu`.  Matrix dtype: `--precision` wins; otherwise
+float32 on CUDA (the kernel path, escalated to float64 past the float32
+floor) and float64 on the CPU.
+
+Not yet ported (each fails with exit 1): --algorithm emgpu, --iters > 0,
+--run-rate, --shards > 1, --distributed-*, --trace-dir.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from msweep_tpu import __version__
+from msweep_tpu.cli import _manifest_samples, build_parser
+from msweep_tpu.log import Log
+
+from .device import resolve_device
+
+
+def _not_ported(args) -> list[str]:
+    """The flags this run sets that the port does not run yet."""
+    found = []
+    if args.algorithm == "emgpu":
+        found.append("--algorithm emgpu")
+    if args.iters > 0:
+        found.append("--iters > 0")
+    if args.run_rate:
+        found.append("--run-rate")
+    if args.shards > 1:
+        found.append("--shards > 1")
+    if (args.distributed_coordinator or args.distributed_nprocs is not None
+            or args.distributed_process_id is not None):
+        found.append("--distributed-*")
+    if args.trace_dir:
+        found.append("--trace-dir")
+    return found
+
+
+def _matrix_dtype(args, device: torch.device) -> torch.dtype:
+    if args.precision:
+        return torch.float32 if args.precision == "float" else torch.float64
+    return torch.float32 if device.type == "cuda" else torch.float64
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    parser.prog = "msweep-tpu-torch"
+    args = parser.parse_args(argv)
+    log = Log(verbose=args.verbose)
+    log(f"msweep-tpu-{__version__} abundance estimation")
+
+    if args.version:
+        print(f"msweep-tpu-{__version__}", file=sys.stderr)
+    if args.cite:
+        from msweep_tpu.cli import CITATION
+
+        print(CITATION, file=sys.stderr)
+    if args.version or args.cite:
+        return 0
+
+    missing = _not_ported(args)
+    if missing:
+        print(
+            f"Error: {', '.join(missing)} not yet ported to PyTorch/CUDA "
+            "(see ROADMAP.md); use msweep_tpu.cli\nexiting",
+            file=sys.stderr,
+        )
+        return 1
+
+    if not args.indicators:
+        print("Error in parsing arguments:\n  -i is required\nexiting", file=sys.stderr)
+        return 1
+
+    if "/" in args.output:
+        outdir = args.output[: args.output.rfind("/")]
+        if not os.path.isdir(outdir):
+            print(
+                f"Error in parsing arguments:\n  directory {outdir} does not exist\nexiting",
+                file=sys.stderr,
+            )
+            return 1
+
+    alignment_paths: list[str] = []
+    if args.themisto:
+        alignment_paths = args.themisto.split(",")
+    elif args.themisto_1 and args.themisto_2:
+        alignment_paths = [args.themisto_1, args.themisto_2]
+
+    try:
+        device = resolve_device(args.backend)
+        return _run(args, alignment_paths, device, log)
+    except Exception as e:  # fail fast with the message, like the reference
+        print(f"{type(e).__name__}: {e}\nexiting", file=sys.stderr)
+        log.flush()
+        return 1
+
+
+def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> int:
+    from msweep_tpu.core import binning as binning_mod
+    from msweep_tpu.core.alignment import collapse
+    from msweep_tpu.core.likelihood import (
+        build_likelihood,
+        read_likelihood_msweep,
+        write_likelihood_bitseq,
+        write_likelihood_msweep,
+    )
+    from msweep_tpu.core.sample import make_sample
+    from msweep_tpu.io.compressed import read_input_bytes
+    from msweep_tpu.io.grouping import read_reference
+    from msweep_tpu.io.outputs import OutfileDesignator, write_abundances, write_bin, write_probs
+    from msweep_tpu.io.packed import looks_packed, parse_packed_pairs
+    from msweep_tpu.io.themisto import merge_strands, parse_plaintext_pairs
+
+    from .inference import fit_result, pack_problem
+
+    log("Reading the input files")
+    log("  reading group indicators")
+    reference = read_reference(args.indicators)
+    n_groupings = reference.n_groupings
+    if n_groupings > 1:
+        log(f"  read {n_groupings} groupings")
+    log(f"  read {reference.n_refs} group indicators")
+
+    dtype = _matrix_dtype(args, device)
+    if device.type == "cuda" and dtype == torch.float32 and not args.precision:
+        log(
+            "  using float32 matrices with float64 accumulation (CUDA kernel "
+            "path); pass --precision double for reference double precision"
+        )
+
+    def run_one_sample(out, sample_paths):
+        """Per-sample pipeline (alignment -> fit -> outputs), shared by the
+        single-sample path and --samples-manifest."""
+        aln = None
+        resume = bool(args.read_likelihood or args.read_checkpoint)
+        if not resume:
+            log("  reading pseudoalignments")
+            strands = []
+            n_reads = 0
+            if sample_paths:
+                buffers = [read_input_bytes(p) for p in sample_paths]
+            else:
+                buffers = [sys.stdin.buffer.read()]
+            for buf in buffers:
+                if looks_packed(buf):
+                    r, t, n = parse_packed_pairs(buf, reference.n_refs)
+                else:
+                    r, t, n = parse_plaintext_pairs(buf, args.threads)
+                strands.append((r, t))
+                n_reads = n  # overwritten per strand like the reference
+            keys = merge_strands(strands, reference.n_refs, args.themisto_mode)
+            log(f"  read alignments for {n_reads} reads")
+            log("Building equivalence classes")
+            aln = collapse(keys, reference.n_refs, n_reads)
+            log(f"  found {aln.n_ecs} unique alignments")
+        elif n_groupings > 1:
+            raise RuntimeError(
+                "Using more than one grouping with --read-likelihood is not yet implemented."
+            )
+
+        if args.read_checkpoint and args.bin_reads:
+            raise RuntimeError("--read-checkpoint is incompatible with --bin-reads")
+
+        for gi in range(n_groupings):
+            grouping = reference.groupings[gi]
+
+            if args.read_checkpoint:
+                log("  reading likelihood checkpoint")
+                from msweep_tpu.io.checkpoint import load_checkpoint
+
+                lik, _ = load_checkpoint(args.read_checkpoint)
+                if lik.n_groups_total != grouping.n_groups:
+                    raise RuntimeError(
+                        f"checkpoint has {lik.n_groups_total} groups but the "
+                        f"grouping file has {grouping.n_groups}"
+                    )
+                sample = make_sample(lik.ec_counts, int(lik.ec_counts.sum()))
+            elif args.read_likelihood:
+                log("  reading likelihoods from file")
+                lik = read_likelihood_msweep(
+                    read_input_bytes(args.read_likelihood), grouping.n_groups
+                )
+                sample = make_sample(lik.ec_counts, int(lik.ec_counts.sum()))
+            else:
+                log("Computing the likelihood matrix")
+                lik = build_likelihood(
+                    aln,
+                    grouping.indicators,
+                    grouping.sizes,
+                    q=args.q,
+                    e=args.e,
+                    min_hits=args.min_hits,
+                    zero_inflation=args.zero_inflation,
+                )
+                sample = make_sample(aln.ec_counts, aln.n_reads)
+
+            if args.write_checkpoint:
+                log("  writing likelihood checkpoint")
+                from msweep_tpu.io.checkpoint import save_checkpoint
+
+                path = args.write_checkpoint
+                if n_groupings > 1:
+                    path = f"{path}.{gi}" if gi else path
+                save_checkpoint(path, lik, grouping.names)
+
+            if args.write_likelihood or args.write_likelihood_bitseq:
+                fmt_name = "bitseq" if args.write_likelihood_bitseq else "mSWEEP"
+                stream = out.likelihoods(fmt_name)
+                if fmt_name == "bitseq":
+                    write_likelihood_bitseq(lik, stream)
+                else:
+                    write_likelihood_msweep(lik, stream)
+                if stream is not sys.stdout:
+                    stream.close()
+
+            mask = lik.groups_mask
+            estimated_names = [n for n, m in zip(grouping.names, mask) if m]
+            zero_names = (
+                [n for n, m in zip(grouping.names, mask) if not m] if args.min_hits > 0 else []
+            )
+
+            if args.no_fit_model:
+                log("Skipping relative abundance estimation (--no-fit-model toggled)")
+                if gi < n_groupings - 1:
+                    out.next_grouping()
+                continue
+
+            log("Estimating relative abundances")
+            alpha = None
+            if args.alphas:
+                alpha = np.array([float(v) for v in args.alphas.split(",")], dtype=np.float64)
+
+            problem = pack_problem(lik, alpha=alpha, dtype=dtype, device=device)
+            t_fit = time.time()
+            res = fit_result(
+                problem,
+                args.algorithm,
+                tol=args.tol,
+                max_iters=args.max_iters,
+                verbose=args.verbose,
+                log=log,
+                refine=not args.no_precision_escalation,
+            )
+            theta = res.theta.cpu().numpy()  # waits for the device
+            t_fit = time.time() - t_fit
+            n_it = max(res.n_iters, 1)
+            log(
+                f"  optimizer finished after {res.n_iters} iterations "
+                f"({t_fit:.2f}s, {n_it / t_fit:.2f} it/s)"
+            )
+
+            if args.min_hits > 0:
+                print(
+                    "WARNING: --min-hits > 0 is an experimental option that has not been "
+                    "thoroughly tested and is subject to change.\n",
+                    file=sys.stderr,
+                )
+
+            sample.abundances = theta
+            # The (E, G) probability matrix is built only when an output
+            # consumes it (probs files / binning).
+            gamma_host = None
+            if args.print_probs or args.write_probs or args.bin_reads:
+                gamma_host = res.gamma().cpu().numpy()
+                sample.gamma = gamma_host
+
+            if args.bin_reads:
+                if args.read_likelihood:
+                    raise RuntimeError("--bin-reads can't be used with --read-likelihood")
+                if args.target_groups:
+                    target_names = args.target_groups.split(",")
+                else:
+                    target_names = list(estimated_names)
+                if args.min_abundance is not None:
+                    target_names = binning_mod.filter_target_groups(
+                        estimated_names, theta, args.min_abundance, target_names
+                    )
+                bins = binning_mod.bin_reads(aln, gamma_host, theta, estimated_names, target_names)
+                for name in target_names:
+                    stream = out.bin(name)
+                    write_bin(stream, bins[name])
+                    stream.close()
+
+            if args.print_probs:
+                write_probs(sys.stdout, estimated_names, gamma_host, zero_names)
+            if args.write_probs:
+                stream = out.probs()
+                write_probs(stream, estimated_names, gamma_host, zero_names)
+                stream.close()
+
+            stream = out.abundances()
+            write_abundances(
+                stream,
+                estimated_names,
+                theta,
+                sample.n_reads,
+                sample.counts_total,
+                zero_names,
+            )
+            if stream is not sys.stdout:
+                stream.close()
+
+            if gi < n_groupings - 1:
+                out.next_grouping()
+
+    if args.samples_manifest:
+        if sum(1 for p in (args.themisto, args.themisto_1, args.read_likelihood,
+                           args.read_checkpoint) if p):
+            raise RuntimeError(
+                "--samples-manifest is incompatible with --themisto*, "
+                "--read-likelihood and --read-checkpoint"
+            )
+        samples = _manifest_samples(args.samples_manifest)
+        log(f"Batch mode: {len(samples)} samples from {args.samples_manifest}")
+        for si, (prefix, paths) in enumerate(samples):
+            log(f"Sample {si + 1}/{len(samples)}: {prefix}")
+            if "/" in prefix and not os.path.isdir(prefix[: prefix.rfind("/")]):
+                raise RuntimeError(f"directory {prefix[: prefix.rfind('/')]} does not exist")
+            run_one_sample(
+                OutfileDesignator(prefix, n_groupings, args.compress, args.compression_level),
+                paths,
+            )
+    else:
+        run_one_sample(
+            OutfileDesignator(args.output, n_groupings, args.compress, args.compression_level),
+            alignment_paths,
+        )
+
+    log.flush()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

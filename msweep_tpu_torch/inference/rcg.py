@@ -1,0 +1,308 @@
+"""Riemannian conjugate-gradient variational Bayes, implicit formulation
+(counterpart of msweep_tpu/inference/rcg.py, whose module docstring
+derives the model, the iteration and the convergence rule).
+
+gamma = rownorm(c * logL + v) with a scalar c and a (G,) vector v, so the
+optimizer state is O(G) and one iteration is two streaming passes over
+logL (ops/rcg_kernels.py): K1 for the Fletcher-Reeves norm, K2 for the
+N update and the ELBO change.  The direction d ~ e * logL + f follows the
+same affine recursion:
+
+    e' = (1 - c) + beta e,   f' = (psi - v) + beta f,   c' = c + e',   v' = v + f'
+
+A step that lowers the ELBO is reverted and the momentum reset (the next
+step is then the plain VB update, which is monotone).
+
+Numbers: the O(G) vectors live on logL's device in float64.  The scalars
+(c, e, the norm, the bound, the last delta) are Python floats, which are
+float64: the kernels take c by value, and the accept/revert decision is a
+host branch, so each iteration reads two float64 scalars back from the
+device.  Sums across rows are float64 in every pass, also when the matrix
+and the row sums are float32.
+
+Precision escalation: a float32 fit stops either at the true tolerance or
+at its numerical floor, where per-iteration ELBO changes drop below the
+float32 row-differencing noise.  Past the floor the same iteration goes on
+with float32 passes in "blind" mode (revert only on decreases beyond the
+measured noise, no self-stopping), supervised every `chunk` iterations by
+one exact float64 bound pass; then a float64 polish applies the true
+per-iteration criterion.  A supervision window that lowers the bound is
+rolled back and the fit continues in float64.
+
+tol < 0 is bench mode: run exactly max_iters iterations.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+from dataclasses import dataclass, replace
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ..ops.rcg_kernels import materialize_gamma, rcg_bound_stats, rcg_norm, rcg_update
+from .pack import DeviceProblem, auto_chunk
+from .result import FitResult
+
+F64 = torch.float64
+
+
+@dataclass(frozen=True)
+class RCGImplicitState:
+    """Optimizer state: gamma = rownorm(c * logL + v), direction
+    d = e * logL + f modulo row constants (which never matter for d)."""
+
+    c: float
+    v: torch.Tensor  # (G,) float64
+    e: float
+    f: torch.Tensor  # (G,) float64
+    n_counts: torch.Tensor  # (G,) float64 Dirichlet posterior counts N
+    oldnorm: float  # metric norm of the last accepted step
+    bound: float  # ELBO, running
+    delta: float  # last accepted improvement
+    it: int  # iterations executed
+    done: bool
+    just_reset: bool  # momentum was reset by the last step
+
+
+def state_from_numpy(fields: Mapping[str, Any], device) -> RCGImplicitState:
+    """An RCGImplicitState from numpy values by field name, e.g. the
+    fields of a JAX RCGImplicitState converted with np.asarray.  Lets two
+    implementations continue from the same mid-trajectory state."""
+
+    def vec(x):
+        return torch.tensor(np.asarray(x, dtype=np.float64), device=device)
+
+    return RCGImplicitState(
+        c=float(fields["c"]), v=vec(fields["v"]), e=float(fields["e"]),
+        f=vec(fields["f"]), n_counts=vec(fields["n_counts"]),
+        oldnorm=float(fields["oldnorm"]), bound=float(fields["bound"]),
+        delta=float(fields["delta"]), it=int(fields["it"]),
+        done=bool(fields["done"]), just_reset=bool(fields["just_reset"]),
+    )
+
+
+def _converged(tol: float, delta: float, decreased: bool, just_reset: bool) -> bool:
+    """An accepted step with 0 <= improvement < tol, or a pure VB step
+    that still decreased (numerical floor).  tol < 0 never converges."""
+    if tol < 0:
+        return False
+    return (not decreased and delta < tol) or (decreased and just_reset)
+
+
+def _bound_at(prob: DeviceProblem, state: RCGImplicitState, compute_dtype):
+    """(ELBO, N) at gamma = (state.c, state.v) from one K2 absolute pass."""
+    data, colsum = rcg_bound_stats(
+        prob.logL, prob.counts, state.c, state.v, compute_dtype=compute_dtype
+    )
+    n = prob.alpha + colsum
+    return float(prob.bound_const + torch.lgamma(n).sum() + data), n
+
+
+def _rcg_init_implicit(prob: DeviceProblem) -> RCGImplicitState:
+    """(c, v) = (0, 0): gamma_0 uniform over real groups, with N_0 and the
+    exact initial bound from one pass in the matrix's dtype."""
+    G = prob.logL.shape[1]
+    zeros = torch.zeros((G,), dtype=F64, device=prob.logL.device)
+    st = RCGImplicitState(
+        c=0.0, v=zeros, e=0.0, f=zeros, n_counts=zeros, oldnorm=1.0, bound=0.0,
+        delta=math.inf, it=0, done=False, just_reset=False,
+    )
+    bound0, n0 = _bound_at(prob, st, prob.logL.dtype)
+    return replace(st, n_counts=n0, bound=bound0)
+
+
+def _step(st: RCGImplicitState, prob: DeviceProblem, *, tol: float, compute_dtype,
+          blind_tau: float | None = None) -> RCGImplicitState:
+    """One implicit iteration: K1, the O(G) recursion, K2, accept/revert.
+
+    `blind_tau` puts the step in blind mode for the escalation tail: it
+    never declares convergence itself and reverts only on decreases larger
+    than tau, the measured float32 noise scale."""
+    logL, counts = prob.logL, prob.counts
+    psi = torch.special.digamma(st.n_counts)
+    newnorm = float(rcg_norm(logL, counts, psi, st.c, st.v, compute_dtype=compute_dtype))
+    if st.just_reset or st.it == 0 or st.oldnorm <= 0:
+        beta = 0.0
+    else:
+        beta = newnorm / st.oldnorm
+
+    e_new = (1.0 - st.c) + beta * st.e
+    f_new = (psi - st.v) + beta * st.f
+    c_new = st.c + e_new
+    v_new = st.v + f_new
+
+    colsum, elbo_delta = rcg_update(
+        logL, counts, st.c, st.v, c_new, v_new, compute_dtype=compute_dtype
+    )
+    n_new = prob.alpha + colsum
+    dirichlet_delta = (torch.lgamma(n_new) - torch.lgamma(st.n_counts)).sum()
+    delta = float(elbo_delta + dirichlet_delta)
+
+    if blind_tau is not None:
+        decreased = delta < -blind_tau
+        newly_done = False
+    else:
+        decreased = delta < 0
+        newly_done = _converged(tol, delta, decreased, st.just_reset)
+
+    # On revert (e, f) keep stale values: just_reset forces beta = 0 on
+    # the next step, so they are rewritten before being read.
+    if decreased:
+        return replace(st, oldnorm=1.0, it=st.it + 1, done=st.done or newly_done,
+                       just_reset=True)
+    return RCGImplicitState(
+        c=c_new, v=v_new, e=e_new, f=f_new, n_counts=n_new, oldnorm=newnorm,
+        bound=st.bound + delta, delta=delta, it=st.it + 1,
+        done=st.done or newly_done, just_reset=False,
+    )
+
+
+def _rcg_chunk(state: RCGImplicitState, prob: DeviceProblem, *, length: int, tol: float,
+               compute_dtype, max_it: int | None = None, blind_tau: float | None = None):
+    """Up to `length` iterations; a converged state freezes, and a state
+    that reaches `max_it` iterations is marked done.  Returns (state,
+    history) with one (bound, just_reset) pair per executed step."""
+    hist = []
+    for _ in range(length):
+        if state.done:
+            break
+        state = _step(state, prob, tol=tol, compute_dtype=compute_dtype, blind_tau=blind_tau)
+        if max_it is not None and state.it >= max_it:
+            state = replace(state, done=True)
+        hist.append((state.bound, state.just_reset))
+    return state, hist
+
+
+def _print_chunk_history(it0: int, hist) -> None:
+    for k, (bound, reset) in enumerate(hist):
+        print(f"  iter {it0 + k + 1}  bound {bound}  (reset={reset})", file=sys.stderr)
+
+
+def _run_rcg(prob: DeviceProblem, *, tol: float, max_iters: int, verbose: bool,
+             chunk: int, refine: bool = True) -> RCGImplicitState:
+    """The optimizer loop in the matrix's dtype, then (float32 matrices,
+    `refine`) the escalation past the float32 floor."""
+    logL = prob.logL
+    state = _rcg_init_implicit(prob)
+    it = 0
+    while it < max_iters:
+        state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
+                                 compute_dtype=logL.dtype, max_it=max_iters)
+        if verbose:
+            _print_chunk_history(it, hist)
+        it += chunk
+        if tol >= 0 and state.done:
+            break
+
+    if (
+        refine
+        and tol >= 0
+        and logL.dtype == torch.float32
+        and state.done
+        and not (0 <= state.delta < tol)  # floor stop, not true tol
+    ):
+        state, it = _escalate(state, prob, it=it, max_iters=max_iters, tol=tol,
+                              chunk=chunk, verbose=verbose)
+    return state
+
+
+def _escalate(state: RCGImplicitState, prob: DeviceProblem, *, it: int, max_iters: int,
+              tol: float, chunk: int, verbose: bool):
+    """Past-the-floor refinement to float64 convergence: blind float32
+    windows supervised by the exact float64 bound, then a float64 polish
+    (or a float64 fallback after a rolled-back window)."""
+    if verbose:
+        print(
+            f"  f32 numerical floor at iter {state.it} (last accepted delta "
+            f"{state.delta:.3e}); escalating (blind-f32 tail, f64 supervision)",
+            file=sys.stderr,
+        )
+    # Re-anchor in float64: the float32-era N carries ~1e-7 relative
+    # rounding which, through lgamma at N ~ 1e4, injects O(1) spurious
+    # deltas, enough to make the first honest step look like a decrease.
+    bound0, n64 = _bound_at(prob, state, F64)
+    state = replace(state, n_counts=n64, bound=bound0, done=False, just_reset=True,
+                    oldnorm=1.0)
+
+    d0 = state.delta
+    tau = 4.0 * abs(d0) if math.isfinite(d0) else 0.0
+    bound_prev = bound0
+    while it < max_iters:
+        ckpt = state
+        state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
+                                 compute_dtype=prob.logL.dtype, max_it=max_iters,
+                                 blind_tau=tau)
+        if verbose:
+            _print_chunk_history(it, hist)
+        it += chunk
+        steps = state.it - ckpt.it
+        if steps == 0:
+            break  # max_it freeze
+        bound_now, n64 = _bound_at(prob, state, F64)
+        davg = (bound_now - bound_prev) / steps
+        if bound_now < bound_prev:
+            # the blind window went downhill: roll back, go exact
+            state = ckpt
+            it -= chunk
+            if verbose:
+                print(
+                    f"  blind window decreased the bound by {bound_prev - bound_now:.3e}; "
+                    "falling back to exact f64 stepping",
+                    file=sys.stderr,
+                )
+            break
+        state = replace(state, n_counts=n64, bound=bound_now, delta=davg)
+        if verbose:
+            print(f"  iter {state.it}  f64 bound {bound_now}  (avg delta/iter {davg:.3e})",
+                  file=sys.stderr)
+        if davg < tol:
+            break  # blind phase done: polish below
+        bound_prev = bound_now
+    if state.done or it >= max_iters:
+        return state, it
+    # Float64 polish after blind convergence, or the full fallback after a
+    # rollback.  Momentum restarts: the blind phase's noisy direction costs
+    # iterations in the exact tail.
+    state = replace(state, just_reset=True, oldnorm=1.0)
+    while it < max_iters:
+        state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol, compute_dtype=F64,
+                                 max_it=max_iters)
+        if verbose:
+            _print_chunk_history(it, hist)
+        it += chunk
+        if state.done:
+            break
+    return state, it
+
+
+def _state_theta(state: RCGImplicitState, prob: DeviceProblem) -> torch.Tensor:
+    """theta = (N - alpha) / sum(counts): by the definition of N this is
+    mixture_components of the converged gamma, without building gamma."""
+    return (state.n_counts - prob.alpha) / prob.counts.to(F64).sum()
+
+
+def fit_rcg_result(
+    problem: DeviceProblem,
+    *,
+    tol: float = 1e-6,
+    max_iters: int = 5000,
+    verbose: bool = False,
+    chunk: int | None = None,
+    refine: bool = True,
+) -> FitResult:
+    """Fit rcg on a packed problem.  theta and the pseudocounts come from
+    the O(G) state; gamma is built only by FitResult.gamma()."""
+    if chunk is None:
+        chunk = auto_chunk(problem.logL)
+    state = _run_rcg(problem, tol=float(tol), max_iters=int(max_iters),
+                     verbose=bool(verbose), chunk=chunk, refine=refine)
+    return FitResult(
+        theta=_state_theta(state, problem),
+        n_iters=state.it,
+        objective=state.bound,
+        pseudocounts=state.n_counts - problem.alpha,
+        _gamma_fn=lambda: materialize_gamma(problem.logL, state.c, state.v),
+    )

@@ -1,0 +1,1 @@
+"""Device passes of the port: hand-written CUDA kernels and their plain PyTorch versions."""

@@ -8,18 +8,32 @@ Run from the root of a checkout:
 Phases (each raises on failure, and the script exits non-zero):
 
 1. device: the card, its power limit, the torch / CUDA / nvcc versions;
-2. build: the K1/K2 kernels from msweep_tpu_torch/csrc with nvcc;
-3. kernels: every instantiation of K1 and K2 (both modes) against its
-   plain PyTorch version on the card, on inputs drawn from a seed, at
-   ragged and wide shapes and a JAX-style padded problem; a rerun must give
-   the same bits; then kernel and plain times at 2,301,952 x 512;
+2. build: the K1-K5 kernels from msweep_tpu_torch/csrc, one nvcc per source
+   in parallel;
+3. kernels: every instantiation of K1, K2 (both modes), K3, K4 (both
+   modes, B in 1, 3, 8, 13) and K5 against its plain PyTorch version on the
+   card, on inputs drawn from a seed, at ragged and wide shapes and a
+   JAX-style padded problem; a rerun must give the same bits, and each K3/K4
+   replicate the bits of K1/K2 on its own column; then kernel and plain
+   times at 2,301,952 x 512 (K3/K4 at B = 8);
 4. the CLI on tests/golden through msweep_tpu_torch.cli.main on the card:
-   float32 with escalation, and --precision double;
+   rcg in float32 with escalation and --precision double against the golden
+   files; emgpu (float64 and --emprecision float), --iters 4 --seed 7
+   (rcgcpu and emgpu) and --run-rate against the same command run on the
+   CPU (--backend cpu, the plain versions);
 5. the main path at the reference benchmark's efaec-1 scale: the synthetic
    community likelihood (2,301,952 ECs x 512 groups) packed in float32 and
-   fitted with fit_result("rcgcpu", tol=1e-6) with escalation; launch
-   counters reset just before and read just after; theta held against a
-   float64 fit of the same problem.
+   fitted with fit_result("rcgcpu", tol=1e-6) with escalation; theta held
+   against a float64 fit of the same problem;
+6. EM on the same community with the emgpu default policy (float64
+   matrix, tol 1e-6), then 20 iterations through K5 and through the plain
+   version from the same init, in float64 and float32;
+7. bootstrap on the same community: B = 8 replicates drawn with the
+   BootstrapResampler, fit_rcg_batch in float32 on K3/K4, replicates 0 and
+   7 held against serial K1/K2 fits of the same counts.
+
+Each path of 5-7 sets its kernels' launch counters to 0 just before it
+runs and reads them just after.
 
 The last lines are the kernels' JSON record, the card as nvidia-smi names
 it, and {"ok": true, "device": {...}}.  Exits non-zero, printing no
@@ -31,12 +45,14 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -45,6 +61,7 @@ GOLD = os.path.join(REPO, "tests", "golden")
 E_FULL, G_FULL = 2_301_952, 512  # efaec-1: 8192 * 281 ECs (bench.py:360)
 KERNEL_SHAPES = [(1_000_003, 4), (65_536, 512), (4_099, 4096), (777, 5_000), (1, 1), (37, 33)]
 PADDED = (4_096, 600, 72, 88)  # E, G, padded rows, padded columns
+BATCH_SIZES = (1, 3, 8, 13)  # bootstrap replicates for K3/K4
 
 
 def _say(msg: str) -> None:
@@ -84,6 +101,112 @@ def _row_abs_sum(torch, K, L, counts, c, v, cd):
         w = counts[lo:lo + (1 << 15)].to(cd)[:, None] * (num / den)
         total += float((w * (Lc - gamma)).sum(dim=1).abs().to(torch.float64).sum())
     return total
+
+
+def _em_inputs(torch, L, counts, seed):
+    """lse_prev near the row logsumexps and logtheta with ~20% of theta at
+    0 (NEG there), as the EM loop hands them to K5."""
+    from msweep_tpu.utils import NEG
+
+    dev, f64 = L.device, torch.float64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = L.shape[1]
+    theta = torch.rand(G, generator=g, device=dev, dtype=f64)
+    theta[torch.rand(G, generator=g, device=dev, dtype=f64) < 0.2] = 0
+    theta[0] = 1.0
+    theta = theta / theta.sum()
+    logtheta = torch.where(theta > 0, torch.log(theta), torch.full_like(theta, NEG))
+    lse = torch.empty(L.shape[0], dtype=f64, device=dev)
+    for lo in range(0, L.shape[0], 1 << 15):
+        lse[lo:lo + (1 << 15)] = torch.logsumexp(L[lo:lo + (1 << 15)].to(f64) + logtheta, dim=1)
+    lse_prev = lse + 0.05 * torch.randn(lse.shape, generator=g, device=dev, dtype=f64)
+    return counts, lse_prev.to(L.dtype), logtheta.to(L.dtype)
+
+
+def _check_em(torch, KE, L, em_inputs, label):
+    """K5 against its plain version (lse and colsum rtol 1e-5 / 1e-12, ddot
+    within that times sum |c lse|); rerun bit-identical.  Max abs error."""
+    rtol = 1e-5 if L.dtype == torch.float32 else 1e-12
+    got = KE.em_step_kernel(L, *em_inputs)
+    want = KE.em_step_plain(L, *em_inputs)
+    again = KE.em_step_kernel(L, *em_inputs)
+    torch.cuda.synchronize()
+    (lse, col, dd), (lse_w, col_w, dd_w) = got, want
+    scale = float((em_inputs[0] * lse_w).abs().to(torch.float64).sum())
+    gap = abs(float(dd) - float(dd_w))
+    if not (torch.isfinite(lse).all() and torch.isfinite(col).all()):
+        raise AssertionError(f"{label} em_step: non-finite output")
+    if not torch.allclose(lse, lse_w, rtol=rtol, atol=0):
+        raise AssertionError(f"{label} em_step: lse off by {float((lse - lse_w).abs().max())!r}")
+    if not torch.allclose(col, col_w, rtol=rtol, atol=1e-12):
+        raise AssertionError(f"{label} em_step: colsum off by {float((col - col_w).abs().max())!r}")
+    if not gap <= rtol * scale:
+        raise AssertionError(f"{label} em_step: ddot gap {gap!r} > {rtol} * {scale!r}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label} em_step: rerun differs")
+    return max(float((lse - lse_w).abs().max()), float((col - col_w).abs().max()), gap)
+
+
+def _batch_inputs(torch, E, G, B, ldtype, seed, pad_rows=0):
+    """countsT (E, B) in 1..39 (0 on padded rows), psi/v_old/v_new (B, G)
+    and c_old/c_new (B,) away from convergence, drawn on the card."""
+    dev, f64 = torch.device("cuda"), torch.float64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    countsT = torch.randint(1, 40, (E, B), generator=g, device=dev).to(ldtype)
+    if pad_rows:
+        countsT[E - pad_rows:] = 0
+    psi, v_old, v_new = (torch.randn(B, G, generator=g, device=dev, dtype=f64) for _ in range(3))
+    c_old, c_new = (0.5 + torch.rand(B, generator=g, device=dev, dtype=f64) for _ in range(2))
+    return countsT.contiguous(), psi, c_old, v_old, c_new, v_new
+
+
+def _check_batch(torch, K, KB, L, binputs, label):
+    """K3 and K4 (delta and absolute) against their plain versions, reruns
+    bit-identical, and every replicate b bit-identical to K1/K2 on column b
+    (same grid, same row loop).  Returns {kernel: max abs error}."""
+    countsT, psi, c_old, v_old, c_new, v_new = binputs
+    cd = L.dtype
+    rtol = 1e-5 if cd == torch.float32 else 1e-12
+    B = countsT.shape[1]
+    errs = {}
+    norms = KB.rcg_norm_batch_kernel(L, countsT, psi, c_old, v_old)
+    want = KB.rcg_norm_batch_plain(L, countsT, psi, c_old, v_old)
+    again = KB.rcg_norm_batch_kernel(L, countsT, psi, c_old, v_old)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(norms).all() and torch.allclose(norms, want, rtol=rtol, atol=0)):
+        raise AssertionError(f"{label} rcg_norm_batch: {norms.tolist()} vs {want.tolist()}")
+    if not torch.equal(norms, again):
+        raise AssertionError(f"{label} rcg_norm_batch: rerun differs")
+    errs["rcg_norm_batch"] = float((norms - want).abs().max())
+    cols = [countsT[:, b].contiguous() for b in range(B)]
+    for b in range(B):
+        one = K.rcg_norm_kernel(L, cols[b], psi[b], float(c_old[b]), v_old[b], compute_dtype=cd)
+        if float(one) != float(norms[b]):
+            raise AssertionError(f"{label} rcg_norm_batch replicate {b}: not K1's bits")
+    scales = [_row_abs_sum(torch, K, L, cols[b], float(c_new[b]), v_new[b], cd) for b in range(B)]
+    for mode, co, vo in (("delta", c_old, v_old), ("absolute", None, None)):
+        col, s = KB.rcg_update_batch_kernel(L, countsT, co, vo, c_new, v_new)
+        col_w, s_w = KB.rcg_update_batch_plain(L, countsT, co, vo, c_new, v_new)
+        col2, s2 = KB.rcg_update_batch_kernel(L, countsT, co, vo, c_new, v_new)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(col).all() and torch.allclose(col, col_w, rtol=rtol, atol=0)):
+            raise AssertionError(f"{label} rcg_update_batch {mode}: colsum off by "
+                                 f"{float((col - col_w).abs().max())!r}")
+        gaps = (s - s_w).abs().tolist()
+        if not all(gap <= rtol * sc for gap, sc in zip(gaps, scales)):
+            raise AssertionError(f"{label} rcg_update_batch {mode}: gaps {gaps} vs {scales}")
+        if not (torch.equal(col, col2) and torch.equal(s, s2)):
+            raise AssertionError(f"{label} rcg_update_batch {mode}: rerun differs")
+        for b in range(B):
+            c1, s1 = K.rcg_update_kernel(
+                L, cols[b], None if co is None else float(co[b]), None if vo is None else vo[b],
+                float(c_new[b]), v_new[b], compute_dtype=cd)
+            if not (torch.equal(c1, col[b]) and float(s1) == float(s[b])):
+                raise AssertionError(f"{label} rcg_update_batch {mode} replicate {b}: "
+                                     "not K2's bits")
+        errs["rcg_update_batch"] = max(errs.get("rcg_update_batch", 0.0),
+                                       float((col - col_w).abs().max()), max(gaps))
+    return errs
 
 
 def _check_instantiation(torch, K, inputs, cd, label):
@@ -138,9 +261,9 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _busy_share(torch, fn):
-    """Device busy share of fn() (32 float32 iterations in bench mode):
-    kernel time from torch.profiler over the host wall time."""
+def _busy_share(torch, fn, what="32 float32 iterations"):
+    """Device busy share of fn() (a few iterations in bench mode): kernel
+    time from torch.profiler over the host wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -155,7 +278,7 @@ def _busy_share(torch, fn):
         _say("  device busy share: not measured (the profiler saw no device time)")
         return
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:4]
-    _say(f"  profiled 32 float32 iterations: wall {wall:.4f} s (profiler on), device busy "
+    _say(f"  profiled {what}: wall {wall:.4f} s (profiler on), device busy "
          f"{device_s:.4f} s, busy share {device_s / wall:.4f}, idle share "
          f"{1 - device_s / wall:.4f}; top: " + ", ".join(
              f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
@@ -184,12 +307,14 @@ def phase_build():
 
     path, seconds = _build.build(verbose=True)
     _build.load()
-    _say(f"build: {seconds:.3f} s (nvcc, 3 instantiations x 2 kernels) -> "
+    _say(f"build: {seconds:.3f} s (one nvcc per source in parallel, then a link; K1-K5) -> "
          f"{os.path.relpath(path, REPO)}")
 
 
 def phase_kernels(torch):
     _say("== phase 3: kernels against their plain versions on the card")
+    from msweep_tpu_torch.ops import em_kernels as KE
+    from msweep_tpu_torch.ops import rcg_batch_kernels as KB
     from msweep_tpu_torch.ops import rcg_kernels as K
 
     cases = [(E, G, 0, 0) for E, G in KERNEL_SHAPES] + [PADDED]
@@ -199,6 +324,19 @@ def phase_kernels(torch):
             errs = _check_instantiation(torch, K, inputs, cd, f"E={E} G={G} {suffix}")
             _say(f"  ok E={E} G={G} pad=({pr},{pc}) {suffix}: max abs err "
                  f"norm {errs['rcg_norm']:.3e} update {errs['rcg_update']:.3e}")
+            if ld == cd:
+                L, counts = inputs[0], inputs[1]
+                err = _check_em(torch, KE, L, _em_inputs(torch, L, counts, 3000 + i),
+                                f"E={E} G={G} {suffix}")
+                line = [f"em_step {err:.3e}"]
+                for B in BATCH_SIZES:
+                    b_in = _batch_inputs(torch, E, G, B, ld, 2000 + i, pad_rows=pr)
+                    berrs = _check_batch(torch, K, KB, L, b_in, f"E={E} G={G} {suffix} B={B}")
+                    line.append(f"B={B} norm_batch {berrs['rcg_norm_batch']:.3e} "
+                                f"update_batch {berrs['rcg_update_batch']:.3e}")
+                    del b_in
+                _say(f"  ok E={E} G={G} {suffix}: max abs err " + ", ".join(line)
+                     + "; K3/K4 replicates = K1/K2 bits")
             del inputs
     record = {}
     E, G = E_FULL, G_FULL
@@ -222,11 +360,40 @@ def phase_kernels(torch):
         }
         for name, (ms, plain_ms) in times.items():
             gb = L.numel() * L.element_size() / 1e9
-            _say(f"  {name} {suffix}: kernel {ms:.4f} ms ({gb / ms:.1f} TB/s of logL), "
-                 f"plain {plain_ms:.4f} ms, max abs err {errs[name]:.3e}")
-        if suffix == "f32_f32":
-            record = {name: dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name])
-                      for name, (ms, plain_ms) in times.items()}
+            if name in ("rcg_norm", "rcg_update"):
+                _say(f"  {name} {suffix}: kernel {ms:.4f} ms ({gb / ms:.1f} TB/s of logL), "
+                     f"plain {plain_ms:.4f} ms, max abs err {errs[name]:.3e}")
+        if ld == cd:
+            em_in = _em_inputs(torch, L, counts, 7)
+            errs["em_step"] = _check_em(torch, KE, L, em_in, f"E={E} G={G} {suffix}")
+            times["em_step"] = (_time_ms(torch, lambda: KE.em_step_kernel(L, *em_in), 10),
+                                _time_ms(torch, lambda: KE.em_step_plain(L, *em_in), 3))
+            B = 8
+            b_in = _batch_inputs(torch, E, G, B, ld, 8)
+            countsT, psi, c_old, v_old, c_new, v_new = b_in
+            errs.update(_check_batch(torch, K, KB, L, b_in, f"E={E} G={G} {suffix} B={B}"))
+            times["rcg_norm_batch"] = (
+                _time_ms(torch, lambda: KB.rcg_norm_batch_kernel(L, countsT, psi, c_old, v_old), 5),
+                _time_ms(torch, lambda: KB.rcg_norm_batch_plain(L, countsT, psi, c_old, v_old), 2),
+            )
+            times["rcg_update_batch"] = (
+                _time_ms(torch, lambda: KB.rcg_update_batch_kernel(L, countsT, c_old, v_old,
+                                                                   c_new, v_new), 5),
+                _time_ms(torch, lambda: KB.rcg_update_batch_plain(L, countsT, c_old, v_old,
+                                                                  c_new, v_new), 2),
+            )
+            del em_in, b_in, countsT
+        for name, (ms, plain_ms) in times.items():
+            if name in ("em_step", "rcg_norm_batch", "rcg_update_batch"):
+                b = " (B=8)" if "batch" in name else ""
+                _say(f"  {name}{b} {suffix}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"max abs err {errs[name]:.3e}")
+        # The kernels' JSON record: the float32 passes of the rcg paths
+        # (default run and bootstrap), and K5 in float64, the emgpu default.
+        for name, (ms, plain_ms) in times.items():
+            keep = suffix == ("f64_f64" if name == "em_step" else "f32_f32")
+            if keep:
+                record[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name])
         del inputs, L, counts
         torch.cuda.empty_cache()
     return record
@@ -258,21 +425,63 @@ def _run_cli(argv):
     return log
 
 
+@contextlib.contextmanager
+def _recording():
+    """Record what the CLI's fit, bootstrap and RATE calls return (it looks
+    them up in msweep_tpu_torch.inference at each run), so that a run on the
+    card and one on the CPU can be compared beyond the file's 6 digits."""
+    import msweep_tpu_torch.inference as inf
+
+    names = ("fit_result", "fit_rcg_batch", "fit_em_batch", "dirichlet_kld_from_pseudocounts",
+             "rates_from_log_kld")
+    orig = {n: getattr(inf, n) for n in names}
+    rec = {}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            rec[name] = orig[name](*args, **kwargs)
+            return rec[name]
+        return call
+
+    for n in names:
+        setattr(inf, n, wrap(n))
+    try:
+        yield rec
+    finally:
+        for n, fn in orig.items():
+            setattr(inf, n, fn)
+
+
+def _cli_record(argv):
+    """(log, iterations, theta, bootstrap theta or None, (rates, log KLD) or
+    None) of one in-process CLI run, all as numpy."""
+    with _recording() as rec:
+        log = _run_cli(argv)
+    res = rec["fit_result"]
+    batch = rec.get("fit_rcg_batch") or rec.get("fit_em_batch")
+    rate = None
+    if "rates_from_log_kld" in rec:
+        rate = (rec["rates_from_log_kld"].cpu().numpy(),
+                rec["dirichlet_kld_from_pseudocounts"].cpu().numpy())
+    return (log, res.n_iters, res.theta.cpu().numpy(),
+            None if batch is None else batch[0].cpu().numpy(), rate)
+
+
 def phase_cli(torch):
     _say("== phase 4: the CLI on tests/golden, on the card")
+    from msweep_tpu_torch.ops import em_kernels as KE
+    from msweep_tpu_torch.ops import rcg_batch_kernels as KB
     from msweep_tpu_torch.ops import rcg_kernels as K
 
     want = _read_theta(os.path.join(GOLD, "golden_abundances.txt"))
     want_head, want_probs = _read_probs(os.path.join(GOLD, "golden_probs.tsv"))
+    data = ["--themisto-1", os.path.join(GOLD, "s1.txt"),
+            "--themisto-2", os.path.join(GOLD, "s2.txt"),
+            "-i", os.path.join(GOLD, "clustering.txt")]
     with tempfile.TemporaryDirectory() as d:
         for extra, bar in (([], 2e-6), (["--precision", "double", "--write-probs"], 1e-6)):
             K.rcg_norm_kernel.launches = K.rcg_update_kernel.launches = 0
-            log = _run_cli([
-                "--themisto-1", os.path.join(GOLD, "s1.txt"),
-                "--themisto-2", os.path.join(GOLD, "s2.txt"),
-                "-i", os.path.join(GOLD, "clustering.txt"),
-                "-o", os.path.join(d, "run"), "--verbose", *extra,
-            ])
+            log = _run_cli([*data, "-o", os.path.join(d, "run"), "--verbose", *extra])
             if "impl=cuda" not in log:
                 raise AssertionError("the CLI did not pick the CUDA kernels")
             if K.rcg_norm_kernel.launches == 0 or K.rcg_update_kernel.launches == 0:
@@ -292,18 +501,77 @@ def phase_cli(torch):
         if head != want_head or not perr <= 5e-6:
             raise AssertionError(f"golden probs differ: header {head == want_head}, err {perr}")
 
+        # The ported paths: each run on the card against the same command on
+        # the CPU (--backend cpu: the plain versions, float64 unless asked).
+        kernels = {"em": (KE.em_step_kernel,),
+                   "bootstrap": (KB.rcg_norm_batch_kernel, KB.rcg_update_batch_kernel),
+                   "rcg": (K.rcg_norm_kernel, K.rcg_update_kernel)}
+        runs = [
+            ("emgpu", ["--algorithm", "emgpu"], ("em",)),
+            ("emgpu --emprecision float", ["--algorithm", "emgpu", "--emprecision", "float"],
+             ("em",)),
+            ("rcgcpu --iters 4 --seed 7 --precision double",
+             ["--iters", "4", "--seed", "7", "--precision", "double"], ("rcg", "bootstrap")),
+            ("emgpu --iters 4 --seed 7 --precision double",
+             ["--algorithm", "emgpu", "--iters", "4", "--seed", "7", "--precision", "double"],
+             ("em",)),
+            ("--run-rate --precision double", ["--run-rate", "--precision", "double"], ("rcg",)),
+        ]
+        theta_f64 = None
+        for label, flags, uses in runs:
+            for fn in (f for u in uses for f in kernels[u]):
+                fn.launches = 0
+            gpu = _cli_record([*data, "-o", os.path.join(d, "gpu"), "--verbose", *flags])
+            launched = {fn.__name__: fn.launches for u in uses for fn in kernels[u]}
+            cpu = _cli_record([*data, "-o", os.path.join(d, "cpu"), "--verbose", "--backend",
+                               "cpu", *flags])
+            if "impl=cuda" not in gpu[0] or "impl=torch" not in cpu[0]:
+                raise AssertionError(f"{label}: the runs did not name impl=cuda / impl=torch")
+            if not all(launched.values()):
+                raise AssertionError(f"{label}: a kernel of the path did not launch: {launched}")
+            (_, it_g, th_g, bs_g, rate_g), (_, it_c, th_c, bs_c, rate_c) = gpu, cpu
+            dth = float(np.abs(th_g - th_c).max())
+            msg = (f"  {label}: {it_g} iterations on the card, {it_c} on the CPU, "
+                   f"max |theta_gpu - theta_cpu| {dth:.3e}, launches {launched}")
+            if label == "emgpu":
+                theta_f64 = th_g
+                if it_g != it_c or not dth <= 1e-8:
+                    raise AssertionError(msg + " (bars: same iterations, 1e-8)")
+            elif label.startswith("emgpu --emprecision float"):
+                gap = float(np.abs(th_g - theta_f64).max())
+                msg += f"; sum {th_g.sum():.9f}, max |theta32 - theta64| {gap:.3e}"
+                if not abs(th_g.sum() - 1) <= 1e-6 or not np.isfinite(th_g).all():
+                    raise AssertionError(msg + " (bar: theta sums to 1)")
+            elif "--iters" in flags:
+                dbs = float(np.abs(bs_g - bs_c).max())
+                msg += f"; bootstrap columns max gap {dbs:.3e}"
+                if bs_g.shape != (4, len(th_g)) or not dbs <= 2e-6 or not dth <= 2e-6:
+                    raise AssertionError(msg + " (bar 2e-6)")
+            else:
+                rerr = max(float(np.abs(g / c - 1).max()) for g, c in zip(rate_g, rate_c))
+                msg += f"; RATE and KLD max relative gap {rerr:.3e}"
+                if not rerr <= 1e-6 or not dth <= 2e-6:
+                    raise AssertionError(msg + " (bar rtol 1e-6)")
+            _say(msg)
 
-def phase_full(torch):
-    _say(f"== phase 5: main path at E={E_FULL} G={G_FULL}")
+
+def _community():
+    """The synthetic community likelihood of bench.py:237-239 at the
+    efaec-1 size (bench.py:360), not cut; and the seconds it took."""
     from msweep_tpu.synth import make_community_likelihood
+
+    t = time.perf_counter()
+    lik = make_community_likelihood(E_FULL, G_FULL, seed=1, similarity=0.99, cluster_size=8,
+                                    present_frac=0.06)
+    return lik, time.perf_counter() - t
+
+
+def phase_full(torch, lik, build_s):
+    _say(f"== phase 5: main path at E={E_FULL} G={G_FULL}")
     from msweep_tpu_torch.inference import fit_result, pack_problem
     from msweep_tpu_torch.ops import rcg_kernels as K
 
     dev = torch.device("cuda")
-    t = time.perf_counter()
-    lik = make_community_likelihood(E_FULL, G_FULL, seed=1, similarity=0.99, cluster_size=8,
-                                    present_frac=0.06)
-    build_s = time.perf_counter() - t
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     p32 = pack_problem(lik, dtype=torch.float32, device=dev)
@@ -352,6 +620,139 @@ def phase_full(torch):
          f"max |theta32 - theta64| {dtheta:.3e} (bar 5e-5)")
     if not dtheta <= 5e-5:
         raise AssertionError(f"float32 fit is {dtheta} from the float64 fit")
+    del p64, res64
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _em_fixed(torch, E_, KE, p, iters, plain):
+    """theta after `iters` EM iterations (tol < 0) from the init, through
+    K5 or, with `plain`, through its plain version on the same tensors."""
+    if plain:
+        E_.em_step = KE.em_step_plain
+    try:
+        return E_.fit_em_result(p, tol=-1.0, max_iters=iters).theta
+    finally:
+        E_.em_step = KE.em_step
+
+
+def _em_deltas(log: str, tol: float) -> None:
+    """Report the objective change per iteration from the verbose history:
+    a fit that stops at the cap while its deltas fall smoothly and stay
+    positive (EM's objective never decreases) is converging slowly; one
+    whose deltas stall at the resolution of J, or turn negative, is noise."""
+    obj = np.array([float(x) for x in re.findall(r"iter \d+  objective (\S+)", log)])
+    delta = np.diff(obj)  # delta[k] is the change at iteration k + 2
+    res = float(np.spacing(np.abs(obj).max()))
+    at = [k for k in (0, 8, 98, 998, 1998, 2998, 3998) if k < len(delta) - 1] + [len(delta) - 1]
+    _say("  objective change by iteration: "
+         + ", ".join(f"{k + 2}: {delta[k]:.4e}" for k in at)
+         + f"; resolution of the differences {res:.1e}; {int((delta < 0).sum())} negative")
+    if len(delta) > 1001 and delta[-1] > tol:
+        r = delta[-1] / delta[-1001]
+        more = math.log(tol / delta[-1]) / math.log(r) * 1000 if 0 < r < 1 else math.inf
+        _say(f"  last 1000 iterations: delta x {r:.4f}; at that rate |delta| < {tol} after "
+             f"~{more:.0f} more iterations")
+
+
+def phase_em(torch, lik):
+    _say(f"== phase 6: EM (emgpu) at E={E_FULL} G={G_FULL}")
+    from msweep_tpu_torch.inference import em as E_
+    from msweep_tpu_torch.inference import fit_result, pack_problem
+    from msweep_tpu_torch.ops import em_kernels as KE
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    p64 = pack_problem(lik, dtype=torch.float64, device=dev)  # the emgpu default policy
+    counters = (KE.em_step_kernel, KE.em_step_plain)
+    for fn in counters:
+        fn.launches = 0
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(buf):
+        res = fit_result(p64, "emgpu", tol=1e-6, max_iters=5000, verbose=True)
+        theta = res.theta.cpu().numpy()
+    fit_s = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    _say(f"  float64: {res.n_iters} iterations, fit {fit_s:.3f} s, "
+         f"{res.n_iters / fit_s:.3f} it/s, peak device memory {peak / 2**30:.3f} GiB, "
+         f"launches {launches}")
+    _em_deltas(buf.getvalue(), tol=1e-6)
+    if launches["em_step_kernel"] == 0 or launches["em_step_plain"]:
+        raise AssertionError(f"EM did not run on K5 alone: {launches}")
+    if theta.shape != (G_FULL,) or not np.isfinite(theta).all() or abs(theta.sum() - 1) > 1e-9:
+        raise AssertionError(f"EM theta is not a distribution: sum {theta.sum()!r}")
+    _busy_share(torch, lambda: fit_result(p64, "emgpu", tol=-1.0, max_iters=32),
+                "32 float64 EM iterations")
+
+    for p, bar in ((p64, 1e-10), (None, 1e-5)):
+        if p is None:
+            del p64
+            torch.cuda.empty_cache()
+            p = pack_problem(lik, dtype=torch.float32, device=dev)
+        th_k = _em_fixed(torch, E_, KE, p, 20, plain=False)
+        th_p = _em_fixed(torch, E_, KE, p, 20, plain=True)
+        gap = float((th_k - th_p).abs().max())
+        _say(f"  20 iterations {p.logL.dtype}: max |theta_K5 - theta_plain| {gap:.3e} "
+             f"(bar {bar})")
+        if not gap <= bar:
+            raise AssertionError(f"EM through K5 is {gap} from the plain version")
+    del p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bootstrap(torch, lik):
+    _say(f"== phase 7: bootstrap at E={E_FULL} G={G_FULL}, B=8, float32")
+    from msweep_tpu.core.sample import BootstrapResampler
+    from msweep_tpu_torch.inference import bound_const, fit_rcg_batch, fit_rcg_result
+    from msweep_tpu_torch.inference import pack_problem
+    from msweep_tpu_torch.ops import rcg_batch_kernels as KB
+
+    dev = torch.device("cuda")
+    B = 8
+    t = time.perf_counter()
+    batch = BootstrapResampler(lik.ec_counts, seed=7).resample_batch(B)
+    draw_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    p32 = pack_problem(lik, dtype=torch.float32, device=dev)
+    counters = (KB.rcg_norm_batch_kernel, KB.rcg_update_batch_kernel,
+                KB.rcg_norm_batch_plain, KB.rcg_update_batch_plain)
+    for fn in counters:
+        fn.launches = 0
+    t = time.perf_counter()
+    tb, ib, _ = fit_rcg_batch(p32, batch, tol=1e-6, max_iters=5000)
+    tb = tb.cpu().numpy()
+    fit_s = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    iters = ib.tolist()
+    _say(f"  draw {draw_s:.3f} s; fit {fit_s:.3f} s, iterations per replicate {iters}, "
+         f"{max(iters) / fit_s:.3f} batched it/s, peak device memory {peak / 2**30:.3f} GiB, "
+         f"launches {launches}")
+    if launches["rcg_norm_batch_kernel"] == 0 or launches["rcg_update_batch_kernel"] == 0:
+        raise AssertionError(f"the bootstrap did not launch K3 and K4: {launches}")
+    if launches["rcg_norm_batch_plain"] or launches["rcg_update_batch_plain"]:
+        raise AssertionError(f"the bootstrap ran a plain version: {launches}")
+    if not np.isfinite(tb).all() or np.abs(tb.sum(axis=1) - 1).max() > 1e-5:
+        raise AssertionError("bootstrap thetas are not distributions")
+    _busy_share(torch, lambda: fit_rcg_batch(p32, batch, tol=-1.0, max_iters=8, chunk=8),
+                "8 batched float32 iterations, B=8")
+
+    for b in (0, B - 1):
+        counts = torch.as_tensor(batch[b], dtype=torch.float32, device=dev)
+        pb = replace(p32, counts=counts, bound_const=bound_const(batch[b], np.ones(G_FULL)))
+        t = time.perf_counter()
+        r = fit_rcg_result(pb, tol=1e-6, max_iters=5000, refine=False)
+        gap = float(np.abs(r.theta.cpu().numpy() - tb[b]).max())
+        _say(f"  replicate {b}: serial K1/K2 fit {r.n_iters} iterations in "
+             f"{time.perf_counter() - t:.3f} s, batch {iters[b]}; max |theta gap| {gap:.3e} "
+             f"(bars: same iterations, 2e-6)")
+        if r.n_iters != iters[b] or not gap <= 2e-6:
+            raise AssertionError(f"replicate {b} differs from its serial fit")
+    del p32
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -368,19 +769,27 @@ def main() -> int:
     phase_build()
     record = phase_kernels(torch)
     phase_cli(torch)
-    launches = phase_full(torch)
+    lik, build_s = _community()
+    launches = phase_full(torch, lik, build_s)
+    launches.update(phase_em(torch, lik))
+    launches.update(phase_bootstrap(torch, lik))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     _say(f"total {time.perf_counter() - t0:.1f} s")
 
-    kernels = [
-        dict(name="rcg_norm", route="cuda", source="msweep_tpu_torch/csrc/rcg_norm.cu",
-             replaces="msweep_tpu/ops/rcg_pallas.py:212",
-             launches=launches["rcg_norm_kernel"], **record["rcg_norm"]),
-        dict(name="rcg_update", route="cuda", source="msweep_tpu_torch/csrc/rcg_update.cu",
-             replaces="msweep_tpu/ops/rcg_pallas.py:240",
-             launches=launches["rcg_update_kernel"], **record["rcg_update"]),
+    src = "msweep_tpu_torch/csrc/"
+    rows = [
+        ("rcg_norm", "rcg_norm.cu", "msweep_tpu/ops/rcg_pallas.py:212", "rcg_norm_kernel"),
+        ("rcg_update", "rcg_update.cu", "msweep_tpu/ops/rcg_pallas.py:240", "rcg_update_kernel"),
+        ("rcg_norm_batch", "rcg_norm_batch.cu", "msweep_tpu/ops/rcg_pallas.py:390",
+         "rcg_norm_batch_kernel"),
+        ("rcg_update_batch", "rcg_update_batch.cu", "msweep_tpu/ops/rcg_pallas.py:423",
+         "rcg_update_batch_kernel"),
+        ("em_step", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_kernel"),
     ]
+    kernels = [dict(name=name, route="cuda", source=src + f, replaces=replaces,
+                    launches=launches[counter], **record[name])
+               for name, f, replaces, counter in rows]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
 """PyTorch/CUDA port of msweep-tpu.
 
 The device side of the JAX package (msweep_tpu) rebuilt on PyTorch, with
-the TPU kernels of the rcg optimizer written by hand in CUDA C++ for
-Hopper (csrc/).  The host layers (alignment parsing, EC collapse,
-likelihood build, output writers) are the JAX package's own JAX-free
-modules, imported and not copied.  This package never imports jax.
+the TPU kernels of the rcg and EM optimizers and of the bootstrap batch
+written by hand in CUDA C++ for Hopper (csrc/).  The host layers
+(alignment parsing, EC collapse, likelihood build, bootstrap draws, output
+writers) are the JAX package's own JAX-free modules, imported and not
+copied.  This package never imports jax.
 
   device.py       the torch.device named by --backend (no silent fallback)
-  inference/      packing, the implicit rcg optimizer, fit dispatch
-  ops/            the K1/K2 passes: CUDA kernels and plain PyTorch versions
+  inference/      packing, the implicit rcg optimizer and its bootstrap
+                  batch, EM and its batch, RATE, fit dispatch
+  ops/            the passes K1-K5: CUDA kernels and plain PyTorch versions
   csrc/           the CUDA sources, built with nvcc at first use
-  cli.py          the mSWEEP-compatible command line, rcg path
+  cli.py          the mSWEEP-compatible command line
 """
 
 from msweep_tpu import __version__

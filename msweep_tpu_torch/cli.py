@@ -1,16 +1,19 @@
-"""Command-line driver of the port: the mSWEEP-compatible CLI, rcg path
-(counterpart of msweep_tpu/cli.py, whose flag surface it reuses).
+"""Command-line driver of the port: the mSWEEP-compatible CLI
+(counterpart of msweep_tpu/cli.py, whose flag surface it reuses): rcg and
+EM fits, --iters bootstrap and --run-rate.
 
     python -m msweep_tpu_torch.cli --themisto-1 fwd.aln --themisto-2 rev.aln \\
         -i clustering.txt -o sample1 [--backend cuda|cpu]
 
 `--backend` defaults to cuda and fails when no GPU is present; a CPU run
 asks for `--backend cpu`.  Matrix dtype: `--precision` wins; otherwise
-float32 on CUDA (the kernel path, escalated to float64 past the float32
-floor) and float64 on the CPU.
+--algorithm emgpu follows `--emprecision` (default double: float64
+matrices, also on CUDA, which has native FP64), and rcg runs float32 on
+CUDA (the kernel path, escalated to float64 past the float32 floor) and
+float64 on the CPU.
 
-Not yet ported (each fails with exit 1): --algorithm emgpu, --iters > 0,
---run-rate, --shards > 1, --distributed-*, --trace-dir.
+Not yet ported (each fails with exit 1): --shards > 1, --distributed-*,
+--trace-dir.
 """
 
 from __future__ import annotations
@@ -32,12 +35,6 @@ from .device import resolve_device
 def _not_ported(args) -> list[str]:
     """The flags this run sets that the port does not run yet."""
     found = []
-    if args.algorithm == "emgpu":
-        found.append("--algorithm emgpu")
-    if args.iters > 0:
-        found.append("--iters > 0")
-    if args.run_rate:
-        found.append("--run-rate")
     if args.shards > 1:
         found.append("--shards > 1")
     if (args.distributed_coordinator or args.distributed_nprocs is not None
@@ -49,8 +46,14 @@ def _not_ported(args) -> list[str]:
 
 
 def _matrix_dtype(args, device: torch.device) -> torch.dtype:
+    """--precision wins; emgpu honours --emprecision on every device (the
+    JAX package's CPU rule, msweep_tpu/cli.py:186-192: its TPU-only float32
+    override has no reason on a card with FP64 units); rcg runs float32 on
+    CUDA and float64 on the CPU."""
     if args.precision:
         return torch.float32 if args.precision == "float" else torch.float64
+    if args.algorithm == "emgpu":
+        return torch.float32 if args.emprecision == "float" else torch.float64
     return torch.float32 if device.type == "cuda" else torch.float64
 
 
@@ -116,14 +119,30 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
         write_likelihood_bitseq,
         write_likelihood_msweep,
     )
-    from msweep_tpu.core.sample import make_sample
+    from msweep_tpu.core.sample import BootstrapResampler, make_sample
     from msweep_tpu.io.compressed import read_input_bytes
     from msweep_tpu.io.grouping import read_reference
-    from msweep_tpu.io.outputs import OutfileDesignator, write_abundances, write_bin, write_probs
+    from msweep_tpu.io.outputs import (
+        OutfileDesignator,
+        write_abundances,
+        write_abundances_bootstrap,
+        write_abundances_rate,
+        write_bin,
+        write_probs,
+    )
     from msweep_tpu.io.packed import looks_packed, parse_packed_pairs
     from msweep_tpu.io.themisto import merge_strands, parse_plaintext_pairs
 
-    from .inference import fit_result, pack_problem
+    from .inference import (
+        algorithm_family,
+        dirichlet_kld_from_pseudocounts,
+        fit_em_batch,
+        fit_rcg_batch,
+        fit_result,
+        pack_problem,
+        pick_impl,
+        rates_from_log_kld,
+    )
 
     log("Reading the input files")
     log("  reading group indicators")
@@ -134,7 +153,8 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
     log(f"  read {reference.n_refs} group indicators")
 
     dtype = _matrix_dtype(args, device)
-    if device.type == "cuda" and dtype == torch.float32 and not args.precision:
+    if (device.type == "cuda" and dtype == torch.float32 and not args.precision
+            and args.algorithm != "emgpu"):
         log(
             "  using float32 matrices with float64 accumulation (CUDA kernel "
             "path); pass --precision double for reference double precision"
@@ -261,6 +281,18 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
                 f"({t_fit:.2f}s, {n_it / t_fit:.2f} it/s)"
             )
 
+            if args.run_rate:
+                print(
+                    "WARNING: --run-rate is an experimental option that has not been "
+                    "thoroughly tested and is subject to change.\n",
+                    file=sys.stderr,
+                )
+                # O(G): the pseudocounts a = N - alpha come from the
+                # optimizer state; no gamma matrix is needed.
+                log_klds = dirichlet_kld_from_pseudocounts(res.pseudocounts)
+                sample.log_klds = log_klds.cpu().numpy()
+                sample.rates = rates_from_log_kld(log_klds).cpu().numpy()
+
             if args.min_hits > 0:
                 print(
                     "WARNING: --min-hits > 0 is an experimental option that has not been "
@@ -300,15 +332,56 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
                 write_probs(stream, estimated_names, gamma_host, zero_names)
                 stream.close()
 
+            # Bootstrap replicates: one batch of resampled count vectors
+            # sharing the likelihood matrix (the reference refits serially,
+            # src/mSWEEP.cpp:496-518).  The draws stay on the host in
+            # numpy, so the JAX package and the port draw the same batch
+            # from --seed.
+            if args.iters > 0:
+                log(f"Running estimation with {args.iters} bootstrap iterations")
+                resampler = BootstrapResampler(
+                    lik.ec_counts, bootstrap_count=args.bootstrap_count, seed=args.seed
+                )
+                batch = torch.as_tensor(resampler.resample_batch(args.iters),
+                                        dtype=problem.counts.dtype, device=device)
+                family = algorithm_family(args.algorithm)
+                batch_fit = fit_rcg_batch if family == "rcg" else fit_em_batch
+                log(f"  {family} bootstrap: impl={pick_impl(problem)} replicates={args.iters}")
+                # Abundances straight from the batch fit: no (B, E, G) batch.
+                tb, _, _ = batch_fit(problem, batch, tol=args.tol, max_iters=args.max_iters)
+                tb = tb.cpu().numpy()
+                sample.bootstrap_results = [theta] + list(tb)
+
             stream = out.abundances()
-            write_abundances(
-                stream,
-                estimated_names,
-                theta,
-                sample.n_reads,
-                sample.counts_total,
-                zero_names,
-            )
+            if sample.rate_run:
+                write_abundances_rate(
+                    stream,
+                    estimated_names,
+                    theta,
+                    sample.rates,
+                    sample.log_klds,
+                    sample.n_reads,
+                    sample.counts_total,
+                    zero_names,
+                )
+            elif args.iters > 0:
+                write_abundances_bootstrap(
+                    stream,
+                    estimated_names,
+                    sample.bootstrap_results,
+                    sample.n_reads,
+                    sample.counts_total,
+                    zero_names,
+                )
+            else:
+                write_abundances(
+                    stream,
+                    estimated_names,
+                    theta,
+                    sample.n_reads,
+                    sample.counts_total,
+                    zero_names,
+                )
             if stream is not sys.stdout:
                 stream.close()
 

@@ -21,45 +21,6 @@
 namespace rcg {
 
 template <typename LT, typename CT>
-__device__ __forceinline__ CT norm_row(const LT* __restrict__ row, int64_t G, CT cnt,
-                                       const CT* __restrict__ psi, CT c,
-                                       const CT* __restrict__ v, int lane) {
-  CT m1 = neg_inf<CT>(), m = neg_inf<CT>();
-#pragma unroll 4
-  for (int64_t g = lane; g < G; g += 32) {
-    const CT L = (CT)row[g];
-    m1 = cmax(m1, L + psi[g]);
-    m = cmax(m, ghat(L, c, v[g]));
-  }
-  m1 = warp_max(m1);
-  m = warp_max(m);
-  CT s1 = 0, denom = 0;
-#pragma unroll 4
-  for (int64_t g = lane; g < G; g += 32) {
-    const CT L = (CT)row[g];
-    s1 += cexp((L + psi[g]) - m1);
-    denom += cexp(ghat(L, c, v[g]) - m);
-  }
-  s1 = warp_sum(s1);
-  denom = warp_sum(denom);
-  const CT lse1 = m1 + clog(s1);
-  const CT lden = clog(denom);
-  CT acc = 0;
-#pragma unroll 4
-  for (int64_t g = lane; g < G; g += 32) {
-    const CT L = (CT)row[g];
-    const CT t = L + psi[g];
-    const CT gh = ghat(L, c, v[g]);
-    const CT num = cexp(gh - m);
-    const CT w = cnt * (num / denom);
-    const CT gamma = (gh - m) - lden;
-    const CT s = (t - lse1) - gamma;
-    acc += w * s * s;
-  }
-  return warp_sum(acc);
-}
-
-template <typename LT, typename CT>
 __global__ void __launch_bounds__(THREADS)
 rcg_norm_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
                 const CT* __restrict__ psi, CT c, const CT* __restrict__ v, int64_t E,

@@ -1,24 +1,41 @@
-"""Inference engine of the port: the rcg optimizer on torch tensors
-(counterpart of msweep_tpu/inference/__init__.py)."""
+"""Inference engine of the port: the rcg and EM optimizers, the bootstrap
+batches and RATE on torch tensors (counterpart of
+msweep_tpu/inference/__init__.py)."""
 
+from .em import fit_em_batch, fit_em_result
 from .mixture import bound_const, mixture_components
 from .pack import DeviceProblem, pack_problem, problem_from_numpy
-from .rcg import fit_rcg_result
+from .rate import dirichlet_kld, dirichlet_kld_from_pseudocounts, rates_from_log_kld
+from .rcg import fit_rcg_batch, fit_rcg_result
 from .result import FitResult
 
 __all__ = [
     "DeviceProblem",
     "FitResult",
     "bound_const",
+    "dirichlet_kld",
+    "dirichlet_kld_from_pseudocounts",
+    "fit_em_batch",
+    "fit_em_result",
+    "fit_rcg_batch",
     "fit_rcg_result",
     "fit_result",
     "mixture_components",
     "pack_problem",
     "pick_impl",
     "problem_from_numpy",
+    "rates_from_log_kld",
 ]
 
 _ALGORITHMS = {"rcg": "rcg", "rcgcpu": "rcg", "rcggpu": "rcg", "emgpu": "em"}
+
+
+def algorithm_family(algorithm: str) -> str:
+    """"rcg" for rcg, rcgcpu and rcggpu; "em" for emgpu."""
+    name = _ALGORITHMS.get(algorithm)
+    if name is None:
+        raise ValueError(f"unknown algorithm {algorithm}")
+    return name
 
 
 def pick_impl(problem: DeviceProblem) -> str:
@@ -31,17 +48,13 @@ def fit_result(problem: DeviceProblem, algorithm: str = "rcg", *, tol: float = 1
                max_iters: int = 5000, verbose: bool = False, log=None,
                refine: bool = True) -> FitResult:
     """Dispatch like the reference's rcg_optl wrapper: rcgcpu and rcggpu
-    are both the rcg optimizer on the problem's device.  `refine` controls
-    the precision escalation past the float32 floor.  `log`, if given,
-    receives one line naming the implementation."""
-    name = _ALGORITHMS.get(algorithm)
-    if name is None:
-        raise ValueError(f"unknown algorithm {algorithm}")
-    if name == "em":
-        raise NotImplementedError(
-            f"--algorithm {algorithm} is not yet ported to PyTorch/CUDA, see ROADMAP.md"
-        )
+    are both the rcg optimizer on the problem's device, emgpu is EM.
+    `refine` controls rcg's precision escalation past the float32 floor.
+    `log`, if given, receives one line naming the implementation."""
+    name = algorithm_family(algorithm)
     if log is not None:
         log(f"  {name} optimizer: impl={pick_impl(problem)} dtype={problem.logL.dtype}")
+    if name == "em":
+        return fit_em_result(problem, tol=tol, max_iters=max_iters, verbose=verbose)
     return fit_rcg_result(problem, tol=tol, max_iters=max_iters, verbose=verbose,
                           refine=refine)

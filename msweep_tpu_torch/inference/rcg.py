@@ -29,6 +29,13 @@ one exact float64 bound pass; then a float64 polish applies the true
 per-iteration criterion.  A supervision window that lowers the bound is
 rolled back and the fit continues in float64.
 
+Bootstrap (fit_rcg_batch): B count vectors share one logL.  The batched
+state carries a leading (B,) axis on every field and lives on the device;
+K3/K4 (ops/rcg_batch_kernels.py) take c by pointer and accept/revert is a
+per-replicate torch.where, so a chunk of batched iterations is enqueued
+with no host sync and the host reads done.all() once per chunk.  The batch
+has no precision escalation, as in the JAX package.
+
 tol < 0 is bench mode: run exactly max_iters iterations.
 """
 
@@ -42,6 +49,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..ops.rcg_batch_kernels import rcg_norm_batch, rcg_update_batch
 from ..ops.rcg_kernels import materialize_gamma, rcg_bound_stats, rcg_norm, rcg_update
 from .pack import DeviceProblem, auto_chunk
 from .result import FitResult
@@ -306,3 +314,148 @@ def fit_rcg_result(
         pseudocounts=state.n_counts - problem.alpha,
         _gamma_fn=lambda: materialize_gamma(problem.logL, state.c, state.v),
     )
+
+
+# ---------------------------------------------------------------------------
+# Batched (bootstrap) fit: B count vectors over one logL stream
+# (msweep_tpu/inference/rcg.py:958-1185).
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RCGBatchState:
+    """The implicit state of B replicates: every field has a leading (B,)
+    axis and lives on logL's device, float64 except `it` (int64) and
+    `done`, `just_reset` (bool)."""
+
+    c: torch.Tensor
+    v: torch.Tensor  # (B, G)
+    e: torch.Tensor
+    f: torch.Tensor  # (B, G)
+    n_counts: torch.Tensor  # (B, G)
+    oldnorm: torch.Tensor
+    bound: torch.Tensor
+    delta: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor
+    just_reset: torch.Tensor
+
+
+def batch_state_from_numpy(fields: Mapping[str, Any], device) -> RCGBatchState:
+    """An RCGBatchState from numpy values by field name, e.g. the fields of
+    the JAX package's batched RCGImplicitState converted with np.asarray."""
+    dtypes = {"it": torch.int64, "done": torch.bool, "just_reset": torch.bool}
+    return RCGBatchState(**{
+        name: torch.tensor(np.asarray(fields[name]), dtype=dtypes.get(name, F64), device=device)
+        for name in RCGBatchState.__dataclass_fields__
+    })
+
+
+def _where_b(mask: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """Per replicate: old where mask (B,), else new; for (B,) and (B, G)."""
+    return torch.where(mask.view(-1, *([1] * (new.dim() - 1))), old, new)
+
+
+def _rcg_init_implicit_batch(prob: DeviceProblem, countsT: torch.Tensor, asum0: float,
+                             csum0: float) -> RCGBatchState:
+    """Init for B replicates with one K4 pass in absolute mode at (c, v) =
+    (0, 0): N_0 and the data term of every replicate.  bound_const depends
+    on each replicate's total count: the constant of the original counts
+    (prob.bound_const, at csum0 = sum of counts and asum0 = sum of alpha)
+    is shifted by the lgamma ratio (msweep_tpu/inference/rcg.py:1037-1044)."""
+    logL = prob.logL
+    B, G = countsT.shape[1], logL.shape[1]
+    zeros_b = torch.zeros((B,), dtype=F64, device=logL.device)
+    zeros_bg = torch.zeros((B, G), dtype=F64, device=logL.device)
+    colsum0, data0 = rcg_update_batch(logL, countsT, None, None, zeros_b, zeros_bg)
+    n0 = prob.alpha[None, :] + colsum0
+    csum_b = countsT.to(F64).sum(dim=0)
+    a0 = torch.tensor(asum0, dtype=F64, device=logL.device)
+    bc_b = prob.bound_const + torch.lgamma(a0 + csum0) - torch.lgamma(a0 + csum_b)
+    return RCGBatchState(
+        c=zeros_b, v=zeros_bg, e=zeros_b, f=zeros_bg, n_counts=n0,
+        oldnorm=torch.ones_like(zeros_b), bound=bc_b + torch.lgamma(n0).sum(dim=1) + data0,
+        delta=torch.full_like(zeros_b, math.inf),
+        it=torch.zeros((B,), dtype=torch.int64, device=logL.device),
+        done=torch.zeros((B,), dtype=torch.bool, device=logL.device),
+        just_reset=torch.zeros((B,), dtype=torch.bool, device=logL.device),
+    )
+
+
+def _step_batch(st: RCGBatchState, prob: DeviceProblem, countsT: torch.Tensor, *,
+                tol: float) -> RCGBatchState:
+    """One batched iteration: K3, the O(B G) recursion, K4, and
+    per-replicate accept/revert, all on the device."""
+    logL = prob.logL
+    psi = torch.special.digamma(st.n_counts)
+    newnorm = rcg_norm_batch(logL, countsT, psi, st.c, st.v)
+    no_momentum = st.just_reset | (st.it == 0) | (st.oldnorm <= 0)
+    beta = torch.where(no_momentum, torch.zeros_like(newnorm), newnorm / st.oldnorm)
+
+    e_new = (1.0 - st.c) + beta * st.e
+    f_new = (psi - st.v) + beta[:, None] * st.f
+    c_new = st.c + e_new
+    v_new = st.v + f_new
+
+    colsum, elbo_delta = rcg_update_batch(logL, countsT, st.c, st.v, c_new, v_new)
+    n_new = prob.alpha[None, :] + colsum
+    delta = elbo_delta + (torch.lgamma(n_new) - torch.lgamma(st.n_counts)).sum(dim=1)
+
+    decreased = delta < 0
+    if tol < 0:
+        newly_done = torch.zeros_like(decreased)
+    else:
+        newly_done = (~decreased & (delta < tol)) | (decreased & st.just_reset)
+    return RCGBatchState(
+        c=_where_b(decreased, st.c, c_new), v=_where_b(decreased, st.v, v_new),
+        e=_where_b(decreased, st.e, e_new), f=_where_b(decreased, st.f, f_new),
+        n_counts=_where_b(decreased, st.n_counts, n_new),
+        oldnorm=torch.where(decreased, torch.ones_like(newnorm), newnorm),
+        bound=_where_b(decreased, st.bound, st.bound + delta),
+        delta=_where_b(decreased, st.delta, delta),
+        it=st.it + 1, done=st.done | newly_done, just_reset=decreased,
+    )
+
+
+def _rcg_chunk_batch(state: RCGBatchState, prob: DeviceProblem, countsT: torch.Tensor, *,
+                     length: int, tol: float, max_it: int | None = None) -> RCGBatchState:
+    """`length` batched iterations; replicates that are done keep their
+    state (per-replicate where), and reaching `max_it` marks a replicate
+    done."""
+    for _ in range(length):
+        new = _step_batch(state, prob, countsT, tol=tol)
+        if max_it is not None:
+            new = replace(new, done=new.done | (new.it >= max_it))
+        state = RCGBatchState(**{
+            name: _where_b(state.done, getattr(state, name), getattr(new, name))
+            for name in RCGBatchState.__dataclass_fields__
+        })
+    return state
+
+
+def fit_rcg_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
+                  max_iters: int = 5000, chunk: int = 16):
+    """rcg over a (B, E) batch of count vectors sharing one logL: the
+    bootstrap's refits (msweep_tpu/inference/rcg.py fit_rcg_batch).  The
+    replicates advance in lockstep chunks, each freezing at its own
+    convergence; the host checks done.all() once per chunk.
+
+    Returns (theta (B, G) float64, iterations (B,), bound (B,) float64):
+    theta = (N - alpha) / sum(counts) per replicate, from the state, never
+    a (B, E, G) gamma batch."""
+    logL = problem.logL
+    countsT = torch.as_tensor(counts_batch).to(device=logL.device, dtype=logL.dtype).T
+    countsT = countsT.contiguous()
+    asum0 = float(problem.alpha[: problem.n_groups].sum())
+    csum0 = float(problem.counts.to(F64).sum())
+    state = _rcg_init_implicit_batch(problem, countsT, asum0, csum0)
+    it = 0
+    while it < max_iters:
+        state = _rcg_chunk_batch(state, problem, countsT, length=chunk, tol=float(tol),
+                                 max_it=int(max_iters))
+        it += chunk
+        if tol >= 0 and bool(state.done.all()):
+            break
+    csum_b = countsT.to(F64).sum(dim=0)
+    theta = (state.n_counts - problem.alpha[None, :]) / csum_b[:, None]
+    return theta, state.it, state.bound

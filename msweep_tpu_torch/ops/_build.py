@@ -24,11 +24,11 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # No --use_fast_math: the f32 numerical floor and the escalation trigger
 # depend on correctly rounded expf/logf.  -fmad=false keeps c * logL + v
 # unfused, as the reference computes it.
-NVCC_FLAGS = [
+COMPILE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 ]
+LINK_FLAGS = ["-shared"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -48,7 +48,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -59,42 +59,64 @@ def library_path() -> str:
 def build(verbose: bool = False) -> tuple[str, float]:
     """Compile the kernels if the library for these sources is missing.
 
-    Returns (library path, seconds spent compiling; 0 when it existed)."""
+    One nvcc per source, all started together (the build time grows with
+    the slowest source, not with the number of kernels), then one link.
+    Returns (library path, seconds spent building; 0 when it existed)."""
     path = library_path()
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = [_nvcc(), *(["-Xptxas=-v"] if verbose else []), *COMPILE_FLAGS]
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stdout}\n{r.stderr}"
-        )
+    try:
+        procs = [subprocess.Popen([*nvcc, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        link = subprocess.run([nvcc[0], *LINK_FLAGS, "-o", tmp, *objs], capture_output=True,
+                              text=True) if all(p.returncode == 0 for p in procs) else None
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    if link is None or link.returncode != 0:
+        failed = [f"{s}:\n{log}" for s, p, log in zip(srcs, procs, logs) if p.returncode]
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed or [link.stdout + link.stderr]))
     if verbose:
-        print(r.stdout + r.stderr)
+        print("".join(logs))
     os.replace(tmp, path)
-    return path, seconds
+    return path, time.perf_counter() - t0
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    def sig(name, *argtypes):
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+
     for lt, ct in (("f32", "f32"), ("f32", "f64"), ("f64", "f64")):
         scalar = ctypes.c_float if ct == "f32" else ctypes.c_double
-        fn = getattr(lib, f"rcg_norm_{lt}_{ct}")
         # logL, counts, psi, c, v, E, G, rows_per_cta, n_cta, part, out, stream
-        fn.argtypes = [_P, _P, _P, scalar, _P, _I64, _I64, _I64, _I64, _P, _P, _P]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"rcg_update_{lt}_{ct}")
+        sig(f"rcg_norm_{lt}_{ct}", _P, _P, _P, scalar, _P, _I64, _I64, _I64, _I64, _P, _P, _P)
         # logL, counts, c_old, v_old, c_new, v_new, absolute, E, G,
         # rows_per_cta, n_cta, part_scalar, part_cols, out_scalar, out_cols, stream
-        fn.argtypes = [_P, _P, scalar, _P, scalar, _P, ctypes.c_int, _I64, _I64,
-                       _I64, _I64, _P, _P, _P, _P, _P]
-        fn.restype = ctypes.c_int
+        sig(f"rcg_update_{lt}_{ct}", _P, _P, scalar, _P, scalar, _P, ctypes.c_int, _I64, _I64,
+            _I64, _I64, _P, _P, _P, _P, _P)
+    for suffix in ("f32_f32", "f64_f64"):
+        # logL, countsT, psi, c, v, E, G, B, rows_per_cta, n_cta, part, out, stream
+        sig(f"rcg_norm_batch_{suffix}", _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+            _P, _P, _P)
+        # logL, countsT, c_old, v_old, c_new, v_new, absolute, E, G, B,
+        # rows_per_cta, n_cta, part_scalar, part_cols, out_scalar, out_cols, stream
+        sig(f"rcg_update_batch_{suffix}", _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64,
+            _I64, _I64, _I64, _P, _P, _P, _P, _P)
+        # logL, counts, lse_prev, logtheta, E, G, rows_per_cta, n_cta, lse_out,
+        # part_scalar, part_cols, out_scalar, out_cols, stream
+        sig(f"em_step_{suffix}", _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P,
+            _P)
     lib.rcg_tile_rows.argtypes = []
     lib.rcg_tile_rows.restype = ctypes.c_int
     return lib

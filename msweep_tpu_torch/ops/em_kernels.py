@@ -1,0 +1,110 @@
+"""One EM iteration in one streaming pass over logL: kernel K5 and its
+plain version.
+
+With t = logL + logtheta (logtheta = NEG where theta = 0), the pass
+returns
+
+- lse (E,): the row logsumexp of t, in logL's dtype (the next call's
+  lse_prev);
+- colsum (G,): sum_e counts_e * exp(t_eg - lse_e), the M-step statistic;
+- ddot: sum_e counts_e * (lse_e - lse_prev_e), the deferred change of the
+  objective's data term (msweep_tpu/inference/em.py _make_step).
+
+exp(t - lse) is taken as num / denom with num = exp(t - max), and row
+terms are computed in logL's dtype (float32 for --emprecision float,
+float64 by default); colsum and ddot are summed across rows in float64 and
+returned as float64.
+
+Dispatch on logL's device as in ops/rcg_kernels.py: a CPU tensor takes
+the plain version, a CUDA tensor launches the kernel
+(msweep_tpu_torch/csrc/em_step.cu) or raises.  Both count their launches
+in ``launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .rcg_kernels import F64, _block_rows, _grid, _on_cpu, _raise_on
+
+# matrix dtype (= compute dtype) -> suffix of the C entry points.
+INSTANTIATIONS = {torch.float32: "f32_f32", torch.float64: "f64_f64"}
+
+
+def em_step_plain(logL, counts, lse_prev, logtheta):
+    """Plain K5: (lse (E,) in logL's dtype, colsum (G,) float64, ddot
+    float64 0-d)."""
+    em_step_plain.launches += 1
+    dt, dev = logL.dtype, logL.device
+    E, G = logL.shape
+    logtheta = logtheta.to(dt)
+    lse = torch.empty((E,), dtype=dt, device=dev)
+    colsum = torch.zeros((G,), dtype=F64, device=dev)
+    ddot = torch.zeros((), dtype=F64, device=dev)
+    rows = _block_rows(G)
+    for lo in range(0, E, rows):
+        t = logL[lo:lo + rows] + logtheta
+        m = t.amax(dim=1, keepdim=True)
+        num = torch.exp(t - m)
+        denom = num.sum(dim=1, keepdim=True)
+        row_lse = (m + torch.log(denom))[:, 0]
+        cnt = counts[lo:lo + rows].to(dt)
+        lse[lo:lo + rows] = row_lse
+        colsum = colsum + (cnt[:, None] * (num / denom)).to(F64).sum(dim=0)
+        ddot = ddot + (cnt * (row_lse - lse_prev[lo:lo + rows].to(dt))).to(F64).sum()
+    return lse, colsum, ddot
+
+
+em_step_plain.launches = 0
+
+
+def _check_inputs(logL, counts, lse_prev, logtheta):
+    if logL.dtype not in INSTANTIATIONS:
+        raise TypeError(f"no EM kernel for matrix {logL.dtype}")
+    if logL.dim() != 2 or not logL.is_contiguous():
+        raise ValueError("logL must be a contiguous (E, G) matrix")
+    E, G = logL.shape
+    if counts.shape != (E,) or counts.dtype != logL.dtype or counts.device != logL.device:
+        raise ValueError(f"counts must be ({E},) {logL.dtype} on {logL.device}")
+    for x, n in ((lse_prev, E), (logtheta, G)):
+        if x.shape != (n,) or x.device != logL.device:
+            raise ValueError(f"lse_prev must be ({E},) and logtheta ({G},) on {logL.device}")
+    return (INSTANTIATIONS[logL.dtype], counts.contiguous(),
+            lse_prev.to(logL.dtype).contiguous(), logtheta.to(logL.dtype).contiguous())
+
+
+def em_step_kernel(logL, counts, lse_prev, logtheta):
+    """K5 on the card (msweep_tpu_torch/csrc/em_step.cu)."""
+    from ._build import load
+
+    suffix, counts, lse_prev, logtheta = _check_inputs(logL, counts, lse_prev, logtheta)
+    E, G = logL.shape
+    dev = logL.device
+    rows_per_cta, n_cta = _grid(E, dev)
+    lse = torch.empty((E,), dtype=logL.dtype, device=dev)
+    part_s = torch.empty((n_cta,), dtype=F64, device=dev)
+    part_c = torch.empty((n_cta, G), dtype=F64, device=dev)
+    out_s = torch.empty((1,), dtype=F64, device=dev)
+    out_c = torch.empty((G,), dtype=F64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(load(), f"em_step_{suffix}")(
+            logL.data_ptr(), counts.data_ptr(), lse_prev.data_ptr(), logtheta.data_ptr(),
+            E, G, rows_per_cta, n_cta, lse.data_ptr(), part_s.data_ptr(), part_c.data_ptr(),
+            out_s.data_ptr(), out_c.data_ptr(), stream,
+        )
+    _raise_on(rc, "em_step")
+    em_step_kernel.launches += 1
+    return lse, out_c, out_s[0]
+
+
+em_step_kernel.launches = 0
+
+
+def em_step(logL, counts, lse_prev, logtheta):
+    """One EM pass: (lse (E,), colsum (G,) float64, ddot float64 0-d).
+    logL (E, G); counts (E,) in logL's dtype; lse_prev (E,) and logtheta
+    (G,) are rounded to logL's dtype."""
+    if _on_cpu(logL):
+        return em_step_plain(logL, counts, lse_prev, logtheta)
+    return em_step_kernel(logL, counts, lse_prev, logtheta)

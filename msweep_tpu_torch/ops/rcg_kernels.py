@@ -71,11 +71,13 @@ def masked_softmax(logL: torch.Tensor, L: torch.Tensor, c: torch.Tensor, v: torc
     """Row softmax of ghat = c * L + v with the pad mask keyed off the
     original logL (padded cells keep their value).  L is logL in the
     compute dtype.  Returns (gamma, num, denom) with
-    exp(gamma) == num / denom (msweep_tpu/ops/rcg_pallas.py:110-126)."""
+    exp(gamma) == num / denom (msweep_tpu/ops/rcg_pallas.py:110-126).
+    Rows are the last axis: c and v broadcast against L, so a leading
+    replicate axis on them gives every replicate's softmax."""
     ghat = torch.where(logL <= PAD_THRESHOLD, L, c * L + v)
-    m = ghat.amax(dim=1, keepdim=True)
+    m = ghat.amax(dim=-1, keepdim=True)
     num = torch.exp(ghat - m)
-    denom = num.sum(dim=1, keepdim=True)
+    denom = num.sum(dim=-1, keepdim=True)
     gamma = (ghat - m) - torch.log(denom)
     return gamma, num, denom
 
@@ -146,16 +148,16 @@ rcg_update_plain.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _grid(E: int, device: torch.device) -> tuple[int, int]:
-    """(rows_per_cta, n_cta): a fixed grid of a few CTAs per SM, each
-    walking a contiguous range of whole tiles (the tile size is the
-    kernels' own, read from the library)."""
+def _grid(E: int, device: torch.device, max_cta: int | None = None) -> tuple[int, int]:
+    """(rows_per_cta, n_cta): a fixed grid of a few CTAs per SM (at most
+    `max_cta`), each walking a contiguous range of whole tiles (the tile
+    size is the kernels' own, read from the library)."""
     from ._build import tile_rows
 
     tile = tile_rows()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = max(1, -(-E // tile))
-    n = min(sms * CTAS_PER_SM, tiles)
+    n = min(sms * CTAS_PER_SM, tiles, max_cta or tiles)
     rows_per_cta = -(-tiles // n) * tile
     return rows_per_cta, max(1, -(-E // rows_per_cta))
 

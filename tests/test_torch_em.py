@@ -1,0 +1,247 @@
+"""The port's EM step (msweep_tpu_torch/ops/em_kernels.py) and EM fit
+(msweep_tpu_torch/inference/em.py) against the JAX package's, on the same
+numpy inputs, on the CPU.
+
+The JAX side runs as its own tests run it: the Pallas kernel in interpret
+mode, and the jnp step (impl="xla"), which is also what its float64 CPU
+runs use.  The port runs the plain version of K5 here; the CUDA kernel is
+held against that plain version on the card (test_cuda_em_kernel_matches_plain
+and chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from msweep_tpu.inference import em as jem
+from msweep_tpu.inference.mixture import bound_const, mixture_components
+from msweep_tpu.inference.pack import DeviceProblem as JaxProblem
+from msweep_tpu.ops import em_pallas
+from msweep_tpu.utils import NEG
+from msweep_tpu_torch.inference import em as E_
+from msweep_tpu_torch.inference import problem_from_numpy
+from msweep_tpu_torch.ops import em_kernels as K
+
+
+def _problem(E=64, G=384, seed=0):
+    """tests/test_pallas.py's problem, as numpy float32."""
+    rng = np.random.default_rng(seed)
+    logL = np.log(rng.dirichlet(np.ones(G) * 0.3, size=E) + 1e-12).astype(np.float32)
+    counts = rng.integers(1, 40, size=E).astype(np.float32)
+    alpha = np.ones(G)
+    return logL, counts, alpha, bound_const(counts, alpha)
+
+
+def _pad(logL, counts, alpha, rows=8, cols=128):
+    """The JAX package's padding: NEG rows and columns, count 0, alpha 1."""
+    E, G = logL.shape
+    Lp = np.full((E + rows, G + cols), NEG, logL.dtype)
+    Lp[:E, :G] = logL
+    cp = np.zeros(E + rows, counts.dtype)
+    cp[:E] = counts
+    return Lp, cp, np.concatenate([alpha, np.ones(cols)])
+
+
+def _step_inputs(logL, counts, seed):
+    """lse_prev near the row logsumexps and a theta with zeros (logtheta
+    NEG there), as the EM loop hands them to the pass."""
+    rng = np.random.default_rng(seed + 100)
+    G = logL.shape[1]
+    theta = rng.dirichlet(np.ones(G))
+    theta[rng.random(G) < 0.2] = 0.0
+    theta /= theta.sum()
+    logtheta = np.where(theta > 0, np.log(np.maximum(theta, 1e-300)), NEG).astype(logL.dtype)
+    t = logL.astype(np.float64) + logtheta
+    lse = np.log(np.exp(t - t.max(1, keepdims=True)).sum(1)) + t.max(1)
+    lse_prev = (lse + rng.normal(0, 0.05, lse.shape)).astype(logL.dtype)
+    return lse_prev, logtheta
+
+
+def _t(x, dtype=None):
+    return torch.as_tensor(np.asarray(x), dtype=dtype)
+
+
+@pytest.mark.parametrize("E,G,seed,padded", [
+    (64, 384, 0, False), (128, 256, 5, False), (512, 128, 11, False), (56, 200, 13, True),
+])
+def test_em_step_plain_matches_pallas(E, G, seed, padded):
+    """Plain K5 against the Pallas kernel in interpret mode, float32.  The
+    Pallas kernel sums its partials in float32 across the grid, the port in
+    float64, so lse and colsum agree to float32 round-off (rtol 1e-5) and
+    ddot to 1e-5 of sum_e |c_e lse_e|, the scale of its terms."""
+    logL, counts, alpha, _ = _problem(E, G, seed)
+    if padded:
+        logL, counts, alpha = _pad(logL, counts, alpha)
+    lse_prev, logtheta = _step_inputs(logL, counts, seed)
+    lse_w, colsum_w, ddot_w = em_pallas.em_step(
+        jnp.asarray(logL), jnp.asarray(counts)[:, None], jnp.asarray(lse_prev)[:, None],
+        jnp.asarray(logtheta)[None, :], interpret=True)
+    lse, colsum, ddot = K.em_step(_t(logL), _t(counts), _t(lse_prev), _t(logtheta))
+    assert lse.dtype == torch.float32 and colsum.dtype == ddot.dtype == torch.float64
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_w)[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(colsum.numpy(), np.asarray(colsum_w), rtol=1e-5, atol=1e-6)
+    scale = float(np.abs(counts * lse.numpy()).sum())
+    assert abs(float(ddot) - float(ddot_w)) <= 1e-5 * scale
+    if padded:
+        assert (colsum[G:] == 0).all()
+
+
+def test_em_step_plain_f64_matches_jnp_estep():
+    """Float64 K5 (the emgpu default on CUDA) against the JAX package's
+    float64 E-step (impl="xla"), to float64 round-off (1e-12)."""
+    logL, counts, _, _ = _problem(96, 256, 21)
+    logL, counts = logL.astype(np.float64), counts.astype(np.float64)
+    lse_prev, logtheta = _step_inputs(logL, counts, 21)
+    t, lse_w = jem._estep(jnp.asarray(logL), jnp.exp(jnp.asarray(logtheta)), jnp.float64)
+    colsum_w = jem._colsum_acc(jnp.asarray(counts)[:, None] * jnp.exp(t - lse_w[:, None]))
+    ddot_w = jem._acc_dot(jnp.asarray(counts), lse_w - jnp.asarray(lse_prev))
+    lse, colsum, ddot = K.em_step(_t(logL), _t(counts), _t(lse_prev), _t(logtheta))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_w), rtol=1e-12)
+    np.testing.assert_allclose(colsum.numpy(), np.asarray(colsum_w), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(float(ddot), float(ddot_w), rtol=1e-12)
+
+
+@pytest.mark.parametrize("E,G,seed", [(128, 256, 5), (512, 128, 11)])
+def test_em_fit_matches_jax(E, G, seed):
+    """tests/test_pallas.py::test_em_pallas_matches_xla's bars, against
+    both JAX implementations: the stopping iterations within max(5, it/10)
+    and the objective within rtol 1e-5; theta to file precision (atol
+    1e-6) at a fixed 200 iterations.
+
+    The stopping iteration is compared at tol 1e-2, not 1e-4: on these
+    problems the float32 deltas near 1e-4 are noise (float32 runs stop at
+    298-361 iterations there, the float64 fit at 423 and 572), while at
+    1e-2 float32 and float64 stop on the same iteration."""
+    logL, counts, alpha, bc = _problem(E, G, seed)
+    jargs = (jnp.asarray(logL), jnp.asarray(counts), jnp.asarray(alpha, jnp.float32))
+    p = problem_from_numpy(logL, counts, alpha, bc, "cpu")
+    kw = dict(tol=1e-2, max_iters=500, verbose=False)
+    r = E_.fit_em_result(p, **kw)
+    fixed = dict(tol=-1.0, max_iters=200, verbose=False)
+    th_p = E_.fit_em_result(p, **fixed).theta.numpy()
+    for impl in ("xla", "pallas_interpret"):
+        _, it_j, o_j = jem._fit_em_arrays(*jargs, impl=impl, **kw)
+        assert abs(r.n_iters - int(it_j)) <= max(5, int(it_j) // 10), (impl, r.n_iters, it_j)
+        np.testing.assert_allclose(r.objective, float(o_j), rtol=1e-5)
+        g_j, it_f, _ = jem._fit_em_arrays(*jargs, impl=impl, **fixed)
+        assert int(it_f) == 200
+        th_j = np.asarray(mixture_components(g_j, jargs[1]))
+        np.testing.assert_allclose(th_p, th_j, rtol=0, atol=1e-6)
+
+
+def _jax_problem(logL, counts, alpha, bc):
+    E, G = logL.shape
+    return JaxProblem(logL=jnp.asarray(logL), counts=jnp.asarray(counts),
+                      alpha=jnp.asarray(alpha), n_ecs=E, n_groups=G, bound_const=bc, mesh=None)
+
+
+def test_fit_em_result_f64_matches_jax():
+    """fit_em_result in float64 (the emgpu default): the same iterations,
+    and theta and the pseudocounts within 1e-9 of the JAX package's."""
+    logL, counts, alpha, bc = _problem(128, 256, 23)
+    logL, counts = logL.astype(np.float64), counts.astype(np.float64)
+    kw = dict(tol=1e-6, max_iters=2000)
+    rj = jem.fit_em_result(_jax_problem(logL, counts, alpha, bc), impl="xla", **kw)
+    rp = E_.fit_em_result(problem_from_numpy(logL, counts, alpha, bc, "cpu"), **kw)
+    assert rp.n_iters == int(rj.n_iters) < 2000
+    np.testing.assert_allclose(rp.objective, float(rj.objective), rtol=1e-12)
+    np.testing.assert_allclose(rp.theta.numpy(), np.asarray(rj.theta), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rp.pseudocounts.numpy(), np.asarray(rj.pseudocounts),
+                               rtol=0, atol=1e-9 * counts.sum())
+    # Probabilities, not log-probabilities: a group driven to theta = 0 sits
+    # at NEG in one package and at a merely very negative value in the other.
+    np.testing.assert_allclose(np.exp(rp.gamma().numpy()), np.exp(np.asarray(rj.gamma())),
+                               rtol=0, atol=1e-9)
+
+
+def test_em_state_from_numpy_continuation():
+    """A JAX state seven iterations in, carried across with
+    em_state_from_numpy: five more steps in each package agree (float32
+    interpret-mode kernel on the JAX side; theta atol 1e-6, objective
+    rtol 1e-6, lse to float32 round-off)."""
+    logL, counts, alpha, bc = _problem(128, 256, 29)
+    jl, jc, ja = jnp.asarray(logL), jnp.asarray(counts), jnp.asarray(alpha, jnp.float32)
+    st = jem._em_init(jl, jc, ja)
+    st, _ = jem._em_chunk(st, jl, jc, ja, length=7, tol=1e-6, impl="pallas_interpret")
+    sp = E_.em_state_from_numpy({k: np.asarray(v) for k, v in st._asdict().items()}, "cpu")
+    assert sp.it == 7 and sp.lse.dtype == torch.float32
+    st, _ = jem._em_chunk(st, jl, jc, ja, length=5, tol=1e-6, impl="pallas_interpret")
+    L, c = _t(logL), _t(counts)
+    sp, hist = E_._em_chunk(sp, L, c, _t(alpha) - 1.0, E_._valid_mask(L), length=5, tol=1e-6)
+    assert len(hist) == 5 and sp.it == int(st.it) == 12
+    np.testing.assert_allclose(sp.theta.numpy(), np.asarray(st.theta), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(sp.objective, float(st.objective), rtol=1e-6)
+    np.testing.assert_allclose(sp.lse.numpy(), np.asarray(st.lse), rtol=1e-6)
+    assert sp.done == bool(st.done)
+
+
+def test_em_padding_inert():
+    """A JAX-padded problem (NEG rows and columns, count 0, alpha 1) takes
+    the same trajectory as the unpadded one, and as JAX's: the valid mask
+    from row 0 keeps theta 0 on padded groups (float64, 1e-12)."""
+    logL, counts, alpha, bc = _problem(56, 200, 31)
+    logL, counts = logL.astype(np.float64), counts.astype(np.float64)
+    Lp, cp, ap = _pad(logL, counts, alpha)
+    kw = dict(tol=-1.0, max_iters=12)
+    r0 = E_.fit_em_result(problem_from_numpy(logL, counts, alpha, bc, "cpu"), **kw)
+    r1 = E_.fit_em_result(problem_from_numpy(Lp, cp, ap, bc, "cpu"), **kw)
+    rj = jem.fit_em_result(_jax_problem(Lp, cp, ap, bc), impl="xla", **kw)
+    assert r0.n_iters == r1.n_iters == int(rj.n_iters) == 12
+    assert (r1.theta[200:] == 0).all()
+    np.testing.assert_allclose(r1.theta[:200].numpy(), r0.theta.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(r1.theta.numpy(), np.asarray(rj.theta), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(r1.objective, r0.objective, rtol=1e-12)
+
+
+def test_cpu_tensors_take_the_plain_em_step():
+    """On CPU tensors a whole EM fit runs the plain K5 only: one pass for
+    the init, one per iteration, one for the final pseudocounts."""
+    logL, counts, alpha, bc = _problem(64, 128, 1)
+    before = (K.em_step_plain.launches, K.em_step_kernel.launches)
+    E_.fit_em_result(problem_from_numpy(logL, counts, alpha, bc, "cpu"), tol=-1.0,
+                     max_iters=5)
+    after = (K.em_step_plain.launches, K.em_step_kernel.launches)
+    assert np.subtract(after, before).tolist() == [7, 0]
+
+
+def test_em_kernel_wrapper_validates_before_launch():
+    L = torch.zeros((8, 4), dtype=torch.float64)
+    cnt, lse, lt = torch.ones(8, dtype=torch.float64), torch.zeros(8), torch.zeros(4)
+    with pytest.raises(TypeError):  # no float16 instantiation
+        K.em_step_kernel(L.half(), cnt.half(), lse, lt)
+    with pytest.raises(ValueError):  # counts in another dtype than logL
+        K.em_step_kernel(L, cnt.float(), lse, lt)
+    with pytest.raises(ValueError):  # logtheta of the wrong length
+        K.em_step_kernel(L, cnt, lse, lt[:3])
+    with pytest.raises(ValueError):  # neither cpu nor cuda
+        K.em_step(L.to("meta"), cnt, lse, lt)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs these checks on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(K.INSTANTIATIONS))
+def test_cuda_em_kernel_matches_plain(cuda_device, dtype):
+    """Each instantiation of K5 against its plain version on the card, on
+    a padded ragged problem; a rerun gives the same bits."""
+    logL, counts, alpha, _ = _problem(4091, 300, 37)
+    logL, counts, alpha = _pad(logL, counts, alpha)
+    lse_prev, logtheta = _step_inputs(logL, counts, 37)
+    args = [_t(x, dtype).to(cuda_device) for x in (logL, counts, lse_prev, logtheta)]
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    lse, colsum, ddot = K.em_step_kernel(*args)
+    lse_w, colsum_w, ddot_w = K.em_step_plain(*args)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_w.cpu().numpy(), rtol=rtol)
+    np.testing.assert_allclose(colsum.cpu().numpy(), colsum_w.cpu().numpy(), rtol=rtol,
+                               atol=1e-12)
+    scale = float((args[1] * lse_w).abs().sum())
+    assert abs(float(ddot) - float(ddot_w)) <= rtol * scale
+    lse2, colsum2, ddot2 = K.em_step_kernel(*args)
+    assert torch.equal(lse, lse2) and torch.equal(colsum, colsum2) and torch.equal(ddot, ddot2)

@@ -8,14 +8,14 @@ Run from the root of a checkout:
 Phases (each raises on failure, and the script exits non-zero):
 
 1. device: the card, its power limit, the torch / CUDA / nvcc versions;
-2. build: the K1-K5 kernels from msweep_tpu_torch/csrc, one nvcc per source
-   in parallel;
+2. build: the K1-K5 and T1-T3 kernels from msweep_tpu_torch/csrc, one
+   nvcc per source in parallel;
 3. kernels: every instantiation of K1, K2 (both modes), K3, K4 (both
-   modes, B in 1, 3, 8, 13) and K5 against its plain PyTorch version on the
-   card, on inputs drawn from a seed, at ragged and wide shapes and a
-   JAX-style padded problem; a rerun must give the same bits, and each K3/K4
-   replicate the bits of K1/K2 on its own column; then kernel and plain
-   times at 2,301,952 x 512 (K3/K4 at B = 8);
+   modes, B in 1, 3, 8, 13), K5 and T1-T3 against its plain PyTorch
+   version on the card, on inputs drawn from a seed, at ragged and wide
+   shapes and a JAX-style padded problem; a rerun must give the same bits,
+   and each K3/K4 replicate the bits of K1/K2 on its own column; then
+   kernel and plain times at 2,301,952 x 512 (K3/K4 at B = 8);
 4. the CLI on tests/golden through msweep_tpu_torch.cli.main on the card:
    rcg in float32 with escalation and --precision double against the golden
    files; emgpu (float64 and --emprecision float), --iters 4 --seed 7
@@ -30,9 +30,19 @@ Phases (each raises on failure, and the script exits non-zero):
    version from the same init, in float64 and float32;
 7. bootstrap on the same community: B = 8 replicates drawn with the
    BootstrapResampler, fit_rcg_batch in float32 on K3/K4, replicates 0 and
-   7 held against serial K1/K2 fits of the same counts.
+   7 held against serial K1/K2 fits of the same counts;
+8. the kernel profiler, python -m msweep_tpu_torch.prof_kernels at its
+   defaults (2^19 x 512, 20 reps) in a subprocess: every row prints, none
+   is above the roofline, T1-T3, K1 and K2 launched;
+9. --trace-dir: the golden CLI on the card writes a torch.profiler trace
+   that names the K1 and K2 kernels;
+10. EC-axis sharding on the one card: the phase-5 fit on two shards against
+   the float64 fit and phase 5; EM and the B = 8 bootstrap on three shards
+   at the golden size against unsharded fits; the golden CLI as a
+   one-process NCCL job against the plain run; a two-process gloo run
+   (both processes on this card) against the single-process fit.
 
-Each path of 5-7 sets its kernels' launch counters to 0 just before it
+Each path of 5-10 sets its kernels' launch counters to 0 just before it
 runs and reads them just after.
 
 The last lines are the kernels' JSON record, the card as nvidia-smi names
@@ -62,6 +72,7 @@ E_FULL, G_FULL = 2_301_952, 512  # efaec-1: 8192 * 281 ECs (bench.py:360)
 KERNEL_SHAPES = [(1_000_003, 4), (65_536, 512), (4_099, 4096), (777, 5_000), (1, 1), (37, 33)]
 PADDED = (4_096, 600, 72, 88)  # E, G, padded rows, padded columns
 BATCH_SIZES = (1, 3, 8, 13)  # bootstrap replicates for K3/K4
+SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 
 
 def _say(msg: str) -> None:
@@ -248,6 +259,27 @@ def _check_instantiation(torch, K, inputs, cd, label):
     return errs
 
 
+def _check_sweeps(torch, KP, L, seed, label):
+    """T1-T3 against their plain versions (rtol 1e-5, 1e-5 absolute:
+    float32 sums in another order; the logsumexps of log-probability rows
+    are ~0), reruns bit-identical.  Returns ({name: max abs error}, s)."""
+    g = torch.Generator(device=L.device).manual_seed(seed)
+    s = torch.randn(1, generator=g, device=L.device, dtype=torch.float32)
+    errs = {}
+    for name in SWEEPS:
+        got = getattr(KP, f"{name}_kernel")(L, s)
+        want = getattr(KP, f"{name}_plain")(L, s)
+        again = getattr(KP, f"{name}_kernel")(L, s)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        if not (torch.isfinite(got).all() and torch.allclose(got, want, rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"{label} {name}: off by {err!r}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label} {name}: rerun differs")
+        errs[name] = err
+    return errs, s
+
+
 def _time_ms(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -307,13 +339,14 @@ def phase_build():
 
     path, seconds = _build.build(verbose=True)
     _build.load()
-    _say(f"build: {seconds:.3f} s (one nvcc per source in parallel, then a link; K1-K5) -> "
-         f"{os.path.relpath(path, REPO)}")
+    _say(f"build: {seconds:.3f} s (one nvcc per source in parallel, then a link; K1-K5, "
+         f"T1-T3) -> {os.path.relpath(path, REPO)}")
 
 
 def phase_kernels(torch):
     _say("== phase 3: kernels against their plain versions on the card")
     from msweep_tpu_torch.ops import em_kernels as KE
+    from msweep_tpu_torch.ops import prof_kernels as KP
     from msweep_tpu_torch.ops import rcg_batch_kernels as KB
     from msweep_tpu_torch.ops import rcg_kernels as K
 
@@ -335,6 +368,9 @@ def phase_kernels(torch):
                     line.append(f"B={B} norm_batch {berrs['rcg_norm_batch']:.3e} "
                                 f"update_batch {berrs['rcg_update_batch']:.3e}")
                     del b_in
+                if ld == torch.float32:
+                    serr, _ = _check_sweeps(torch, KP, L, 4000 + i, f"E={E} G={G}")
+                    line.append(" ".join(f"{n} {e:.3e}" for n, e in serr.items()))
                 _say(f"  ok E={E} G={G} {suffix}: max abs err " + ", ".join(line)
                      + "; K3/K4 replicates = K1/K2 bits")
             del inputs
@@ -383,8 +419,14 @@ def phase_kernels(torch):
                                                                   c_new, v_new), 2),
             )
             del em_in, b_in, countsT
+        if ld == cd == torch.float32:
+            serr, s = _check_sweeps(torch, KP, L, 9, f"E={E} G={G}")
+            errs.update(serr)
+            for name in SWEEPS:
+                times[name] = (_time_ms(torch, lambda: getattr(KP, f"{name}_kernel")(L, s), 10),
+                               _time_ms(torch, lambda: getattr(KP, f"{name}_plain")(L, s), 3))
         for name, (ms, plain_ms) in times.items():
-            if name in ("em_step", "rcg_norm_batch", "rcg_update_batch"):
+            if name in ("em_step", "rcg_norm_batch", "rcg_update_batch") + SWEEPS:
                 b = " (B=8)" if "batch" in name else ""
                 _say(f"  {name}{b} {suffix}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                      f"max abs err {errs[name]:.3e}")
@@ -607,6 +649,7 @@ def phase_full(torch, lik, build_s):
     if theta32.shape != (G_FULL,) or not np.isfinite(theta32).all() or abs(theta32.sum() - 1) > 1e-6:
         raise AssertionError(f"theta is not a distribution: sum {theta32.sum()!r}")
     _busy_share(torch, lambda: fit_result(p32, "rcgcpu", tol=-1.0, max_iters=32))
+    iters = res.n_iters
     del p32, res
     torch.cuda.empty_cache()
 
@@ -622,7 +665,8 @@ def phase_full(torch, lik, build_s):
         raise AssertionError(f"float32 fit is {dtheta} from the float64 fit")
     del p64, res64
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(theta32=theta32, theta64=theta64, iters=iters, n_f32=n_f32,
+                          fit_s=fit_s)
 
 
 def _em_fixed(torch, E_, KE, p, iters, plain):
@@ -742,7 +786,8 @@ def phase_bootstrap(torch, lik):
 
     for b in (0, B - 1):
         counts = torch.as_tensor(batch[b], dtype=torch.float32, device=dev)
-        pb = replace(p32, counts=counts, bound_const=bound_const(batch[b], np.ones(G_FULL)))
+        pb = replace(p32, shards=[(p32.logL, counts)],
+                     bound_const=bound_const(batch[b], np.ones(G_FULL)))
         t = time.perf_counter()
         r = fit_rcg_result(pb, tol=1e-6, max_iters=5000, refine=False)
         gap = float(np.abs(r.theta.cpu().numpy() - tb[b]).max())
@@ -754,6 +799,240 @@ def phase_bootstrap(torch, lik):
     del p32
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_prof(torch):
+    _say("== phase 8: the kernel profiler, python -m msweep_tpu_torch.prof_kernels")
+    from msweep_tpu_torch.prof_kernels import ALL_ROWS, ROW_LABELS
+
+    env = {k: v for k, v in os.environ.items() if k not in ("E", "G", "REPS", "WHICH")}
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "msweep_tpu_torch.prof_kernels"], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=900)
+    lines = r.stdout.strip().splitlines()
+    for line in lines:
+        _say(f"  {line}")
+    if r.returncode != 0:
+        raise RuntimeError(f"the profiler exited {r.returncode}:\n{r.stderr}")
+    missing = [k for k in ALL_ROWS.split(",")
+               if not any(ln.startswith(ROW_LABELS[k]) for ln in lines)]
+    if missing or "INVALID" in r.stdout:
+        raise AssertionError(f"profiler rows missing {missing} or flagged above the roofline")
+    launches = json.loads(lines[-1].removeprefix("launches "))
+    needed = [f"{n}_kernel" for n in SWEEPS] + ["rcg_norm_kernel", "rcg_update_kernel"]
+    if not all(launches[k] > 0 for k in needed) or any(
+            v for k, v in launches.items() if k.endswith("_plain")):
+        raise AssertionError(f"the profiler did not run on the kernels alone: {launches}")
+    _say(f"  profiler subprocess {time.perf_counter() - t:.1f} s")
+    return {k: launches[f"{k}_kernel"] for k in SWEEPS}
+
+
+def phase_trace(torch):
+    _say("== phase 9: --trace-dir on the card")
+    with tempfile.TemporaryDirectory() as d:
+        trace_dir = os.path.join(d, "trace")
+        log = _run_cli(["--themisto-1", os.path.join(GOLD, "s1.txt"), "--themisto-2",
+                        os.path.join(GOLD, "s2.txt"), "-i", os.path.join(GOLD, "clustering.txt"),
+                        "-o", os.path.join(d, "run"), "--verbose", "--trace-dir", trace_dir])
+        files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+        if "wrote profiler trace" not in log or len(files) != 1:
+            raise AssertionError(f"no trace written: {files}")
+        events = json.load(open(os.path.join(trace_dir, files[0])))["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels.setdefault(e["name"], []).append(e.get("dur", 0))
+    found = {k: [n for n in kernels if k in n] for k in ("rcg_norm_kernel", "rcg_update_kernel")}
+    _say(f"  {files[0]}: {len(events)} events, {len(kernels)} kernel names; "
+         + "; ".join(f"{n[:60]} x{len(kernels[n])} {sum(kernels[n]):.0f} us"
+                     for k in found for n in found[k]))
+    if not all(found.values()):
+        raise AssertionError(f"the trace does not name K1 and K2: {sorted(kernels)[:20]}")
+
+
+def _golden_data():
+    return ["--themisto-1", os.path.join(GOLD, "s1.txt"), "--themisto-2",
+            os.path.join(GOLD, "s2.txt"), "-i", os.path.join(GOLD, "clustering.txt")]
+
+
+def _golden_lik():
+    """The likelihood of tests/golden, built by the CLI's host code."""
+    from msweep_tpu.cli import build_parser
+    from msweep_tpu.core.alignment import collapse
+    from msweep_tpu.core.likelihood import build_likelihood
+    from msweep_tpu.io.compressed import read_input_bytes
+    from msweep_tpu.io.grouping import read_reference
+    from msweep_tpu.io.themisto import merge_strands, parse_plaintext_pairs
+
+    args = build_parser().parse_args(_golden_data())
+    ref = read_reference(args.indicators)
+    strands = []
+    for path in (args.themisto_1, args.themisto_2):
+        r, t, n = parse_plaintext_pairs(read_input_bytes(path), args.threads)
+        strands.append((r, t))
+    aln = collapse(merge_strands(strands, ref.n_refs, args.themisto_mode), ref.n_refs, n)
+    g = ref.groupings[0]
+    return build_likelihood(aln, g.indicators, g.sizes, q=args.q, e=args.e,
+                            min_hits=args.min_hits, zero_inflation=args.zero_inflation)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _gloo_worker(rank: int, port: int) -> int:
+    """One process of the two-process library run of phase 10: joins a
+    gloo group on cuda:0, fits its half of the golden rows in float64 and
+    float32, and prints what it got as one JSON line."""
+    import torch
+
+    from msweep_tpu_torch.inference import fit_result, pack_problem
+    from msweep_tpu_torch.parallel.mesh import init_distributed, to_host
+
+    dev = torch.device("cuda", 0)
+    init_distributed(f"localhost:{port}", 2, rank, dev, backend="gloo")
+    lik = _golden_lik()
+    out = {"rank": rank}
+    for dtype in (torch.float64, torch.float32):
+        p = pack_problem(lik, dtype=dtype, device=dev)
+        res = fit_result(p, "rcgcpu", tol=1e-6, max_iters=5000)
+        gamma = to_host(res.gamma())
+        out[str(dtype)] = dict(rows=p.rows, iters=res.n_iters, theta=res.theta.tolist(),
+                               gamma=None if gamma is None else gamma.tolist())
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def phase_shard(torch, lik, full):
+    _say("== phase 10: EC-axis sharding on one card")
+    import torch.distributed as dist
+
+    from msweep_tpu.core.sample import BootstrapResampler
+    from msweep_tpu_torch.inference import fit_rcg_batch, fit_result, pack_problem
+    from msweep_tpu_torch.ops import rcg_kernels as K
+
+    dev = torch.device("cuda", 0)
+    counters = (K.rcg_norm_kernel, K.rcg_update_kernel, K.rcg_norm_plain, K.rcg_update_plain)
+    p2 = pack_problem(lik, dtype=torch.float32, device=dev, devices=[dev, dev])
+    for fn in counters:
+        fn.launches = 0
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(buf):
+        res = fit_result(p2, "rcgcpu", tol=1e-6, max_iters=5000, verbose=True)
+        theta = res.theta.cpu().numpy()
+    fit_s = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in counters}
+    floor = re.search(r"numerical floor at iter (\d+)", buf.getvalue())
+    d64 = float(np.abs(theta - full["theta64"]).max())
+    d5 = float(np.abs(theta - full["theta32"]).max())
+    _say(f"  2 shards {p2.rows}, float32 + escalation: {res.n_iters} iterations "
+         f"({floor.group(1) if floor else res.n_iters} float32) in {fit_s:.3f} s; phase 5 "
+         f"unsharded: {full['iters']} ({full['n_f32']} float32) in {full['fit_s']:.3f} s; "
+         f"max |theta - theta64| {d64:.3e} (bar 5e-5), max |theta - phase 5| {d5:.3e}; "
+         f"launches {launches}")
+    if not d64 <= 5e-5:
+        raise AssertionError(f"the 2-shard fit is {d64} from the float64 fit")
+    if not (launches["rcg_norm_kernel"] and launches["rcg_update_kernel"]) or (
+            launches["rcg_norm_plain"] or launches["rcg_update_plain"]):
+        raise AssertionError(f"the sharded fit did not run on K1/K2 alone: {launches}")
+    del p2, res
+    torch.cuda.empty_cache()
+
+    # EM and the B = 8 bootstrap on three shards at the golden size.
+    glik = _golden_lik()
+    p1 = pack_problem(glik, dtype=torch.float64, device=dev)
+    p3 = pack_problem(glik, dtype=torch.float64, device=dev, devices=[dev] * 3)
+    r1, r3 = (fit_result(p, "emgpu", tol=1e-6, max_iters=5000) for p in (p1, p3))
+    gap = float((r1.theta - r3.theta).abs().max())
+    _say(f"  EM float64 on 3 shards {p3.rows}: {r3.n_iters} iterations, unsharded "
+         f"{r1.n_iters}; max |theta gap| {gap:.3e} (bars: same iterations, 1e-10)")
+    if r1.n_iters != r3.n_iters or not gap <= 1e-10:
+        raise AssertionError("sharded EM differs from the unsharded fit")
+    batch = BootstrapResampler(glik.ec_counts, seed=7).resample_batch(8)
+    (t1, i1, _), (t3, i3, _) = (fit_rcg_batch(p, batch, tol=1e-6) for p in (p1, p3))
+    gap = float((t1 - t3).abs().max())
+    _say(f"  bootstrap B=8 float64 on 3 shards: iterations {i3.tolist()}, unsharded "
+         f"{i1.tolist()}; max |theta gap| {gap:.3e} (bars: same iterations, 1e-10)")
+    if i1.tolist() != i3.tolist() or not gap <= 1e-10:
+        raise AssertionError("the sharded bootstrap differs from the unsharded batch")
+
+    # The CLI as a one-process NCCL job: the process group, all_reduce and
+    # the gather of gamma to the root really run.
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counting(t, *args, **kwargs):
+        calls.append((dist.get_backend(), t.device.type))
+        return all_reduce(t, *args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as d:
+        plain = os.path.join(d, "plain")
+        _run_cli([*_golden_data(), "-o", plain, "--write-probs"])
+        def nccl_cli(name, *flags):
+            return _run_cli([*_golden_data(), "-o", os.path.join(d, name), "--verbose", *flags,
+                             "--distributed-coordinator", f"localhost:{_free_port()}",
+                             "--distributed-nprocs", "1", "--distributed-process-id", "0"])
+
+        dist.all_reduce = counting
+        try:
+            log = nccl_cli("nccl", "--write-probs")
+            bs_log = nccl_cli("nccl_bs", "--iters", "4")
+        finally:
+            dist.all_reduce = all_reduce
+        same = all(open(f"{plain}_{f}").read() == open(os.path.join(d, f"nccl_{f}")).read()
+                   for f in ("abundances.txt", "probs.tsv"))
+        bs_rows = [ln.split("\t") for ln in open(os.path.join(d, "nccl_bs_abundances.txt"))
+                   if not ln.startswith("#")]
+    backends = sorted(set(calls))
+    _say(f"  CLI, 1-process NCCL job: {len(calls)} all_reduce calls on {backends}; abundances "
+         f"and probs equal to the plain run: {same}; --iters 4 (root's seed broadcast): "
+         f"{len(bs_rows)} rows x {len(bs_rows[0]) - 1} columns")
+    if not same or backends != [("nccl", "cuda")] or "impl=cuda" not in log:
+        raise AssertionError("the NCCL CLI run differs from the plain run")
+    if "Running estimation with 4 bootstrap" not in bs_log or len(bs_rows[0]) != 6:
+        raise AssertionError("the NCCL bootstrap run did not write 4 replicates")
+
+    # Two processes over gloo, both on this card (NCCL refuses two ranks
+    # on one device), against the single-process fit.
+    port = _free_port()
+    code = f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; " \
+           f"sys.exit(chip_smoke._gloo_worker(int(sys.argv[1]), {port}))"
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"a gloo worker exited {p.returncode}:\n{err}")
+    got = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    for dtype, bar in ((torch.float64, 1e-10), (torch.float32, 2e-6)):
+        p = pack_problem(glik, dtype=dtype, device=dev)
+        res = fit_result(p, "rcgcpu", tol=1e-6, max_iters=5000)
+        th, gam = res.theta.cpu().numpy(), res.gamma().cpu().numpy()
+        w = [g[str(dtype)] for g in got]
+        dth = max(float(np.abs(np.array(x["theta"]) - th).max()) for x in w)
+        dgam = float(np.abs(np.array(w[0]["gamma"]) - gam).max())
+        _say(f"  2-process gloo {dtype}: rows {[x['rows'] for x in w]}, iterations "
+             f"{[x['iters'] for x in w]} against {res.n_iters}; max |theta gap| {dth:.3e}, "
+             f"gamma gathered to rank 0 {np.array(w[0]['gamma']).shape}, max gap {dgam:.3e} "
+             f"(bar {bar}); rank 1 gamma {w[1]['gamma']}")
+        if (any(x["iters"] != res.n_iters for x in w) or not dth <= bar or not dgam <= bar
+                or w[1]["gamma"] is not None):
+            raise AssertionError("the 2-process run differs from the single-process fit")
+    _say(f"  gloo processes {time.perf_counter() - t:.1f} s")
+    _say("  not run: NCCL across two cards (this machine has one card; NCCL refuses two "
+         "processes on one device)")
 
 
 def main() -> int:
@@ -770,9 +1049,12 @@ def main() -> int:
     record = phase_kernels(torch)
     phase_cli(torch)
     lik, build_s = _community()
-    launches = phase_full(torch, lik, build_s)
+    launches, full = phase_full(torch, lik, build_s)
     launches.update(phase_em(torch, lik))
     launches.update(phase_bootstrap(torch, lik))
+    launches.update(phase_prof(torch))
+    phase_trace(torch)
+    phase_shard(torch, lik, full)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     _say(f"total {time.perf_counter() - t0:.1f} s")
@@ -786,6 +1068,9 @@ def main() -> int:
         ("rcg_update_batch", "rcg_update_batch.cu", "msweep_tpu/ops/rcg_pallas.py:423",
          "rcg_update_batch_kernel"),
         ("em_step", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_kernel"),
+        ("prof_read", "prof_sweeps.cu", "tools/prof_kernels.py:118", "prof_read"),
+        ("prof_exp", "prof_sweeps.cu", "tools/prof_kernels.py:178", "prof_exp"),
+        ("prof_exp2", "prof_sweeps.cu", "tools/prof_kernels.py:185", "prof_exp2"),
     ]
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=replaces,
                     launches=launches[counter], **record[name])

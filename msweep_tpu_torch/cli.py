@@ -1,6 +1,7 @@
 """Command-line driver of the port: the mSWEEP-compatible CLI
 (counterpart of msweep_tpu/cli.py, whose flag surface it reuses): rcg and
-EM fits, --iters bootstrap and --run-rate.
+EM fits, --iters bootstrap, --run-rate, --trace-dir, and EC-axis sharding
+over devices (--shards) and processes (--distributed-*).
 
     python -m msweep_tpu_torch.cli --themisto-1 fwd.aln --themisto-2 rev.aln \\
         -i clustering.txt -o sample1 [--backend cuda|cpu]
@@ -12,12 +13,18 @@ matrices, also on CUDA, which has native FP64), and rcg runs float32 on
 CUDA (the kernel path, escalated to float64 past the float32 floor) and
 float64 on the CPU.
 
-Not yet ported (each fails with exit 1): --shards > 1, --distributed-*,
---trace-dir.
+--shards N cuts the EC rows over the first N devices of --backend (0, the
+default, means every visible one; 1 means no sharding).  A distributed run
+starts one process per device with --distributed-coordinator host:port,
+--distributed-nprocs and --distributed-process-id; process p runs on
+cuda:{p % device_count} over NCCL (gloo with --backend cpu), holds one
+row range, and process 0 alone logs and writes.  --trace-dir writes a
+torch.profiler trace of the fit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -30,19 +37,7 @@ from msweep_tpu.cli import _manifest_samples, build_parser
 from msweep_tpu.log import Log
 
 from .device import resolve_device
-
-
-def _not_ported(args) -> list[str]:
-    """The flags this run sets that the port does not run yet."""
-    found = []
-    if args.shards > 1:
-        found.append("--shards > 1")
-    if (args.distributed_coordinator or args.distributed_nprocs is not None
-            or args.distributed_process_id is not None):
-        found.append("--distributed-*")
-    if args.trace_dir:
-        found.append("--trace-dir")
-    return found
+from .parallel import mesh
 
 
 def _matrix_dtype(args, device: torch.device) -> torch.dtype:
@@ -73,15 +68,6 @@ def main(argv=None) -> int:
     if args.version or args.cite:
         return 0
 
-    missing = _not_ported(args)
-    if missing:
-        print(
-            f"Error: {', '.join(missing)} not yet ported to PyTorch/CUDA "
-            "(see ROADMAP.md); use msweep_tpu.cli\nexiting",
-            file=sys.stderr,
-        )
-        return 1
-
     if not args.indicators:
         print("Error in parsing arguments:\n  -i is required\nexiting", file=sys.stderr)
         return 1
@@ -102,12 +88,36 @@ def main(argv=None) -> int:
         alignment_paths = [args.themisto_1, args.themisto_2]
 
     try:
-        device = resolve_device(args.backend)
+        device = _setup_device(args)
         return _run(args, alignment_paths, device, log)
     except Exception as e:  # fail fast with the message, like the reference
         print(f"{type(e).__name__}: {e}\nexiting", file=sys.stderr)
         log.flush()
         return 1
+    finally:
+        if mesh.process_group_up():
+            torch.distributed.destroy_process_group()
+
+
+def _setup_device(args) -> torch.device:
+    """The device of --backend; in a distributed run (msweep_tpu/cli.py:
+    157-169) this process's own device, after joining the process group."""
+    device = resolve_device(args.backend)
+    if not args.distributed_coordinator:
+        return device
+    if args.distributed_nprocs is None or args.distributed_process_id is None:
+        raise RuntimeError(
+            "--distributed-coordinator requires --distributed-nprocs "
+            "and --distributed-process-id"
+        )
+    if args.shards > 1:
+        raise RuntimeError("--shards > 1 cannot be combined with --distributed-*: "
+                           "each process holds one shard on its own device")
+    if device.type == "cuda":
+        device = torch.device("cuda", args.distributed_process_id % torch.cuda.device_count())
+    mesh.init_distributed(args.distributed_coordinator, args.distributed_nprocs,
+                          args.distributed_process_id, device)
+    return device
 
 
 def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> int:
@@ -119,7 +129,7 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
         write_likelihood_bitseq,
         write_likelihood_msweep,
     )
-    from msweep_tpu.core.sample import BootstrapResampler, make_sample
+    from msweep_tpu.core.sample import SEED_SENTINEL, BootstrapResampler, make_sample
     from msweep_tpu.io.compressed import read_input_bytes
     from msweep_tpu.io.grouping import read_reference
     from msweep_tpu.io.outputs import (
@@ -152,6 +162,14 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
         log(f"  read {n_groupings} groupings")
     log(f"  read {reference.n_refs} group indicators")
 
+    is_root = mesh.rank_and_size()[0] == 0
+    if not is_root:
+        log.verbose = False  # root-only logging (msweep_tpu/cli.py:267-269)
+    devices = None
+    if args.shards != 1 and not mesh.process_group_up():
+        devices = mesh.ec_devices(args.shards, device)
+        if devices:
+            log(f"  sharding the EC axis over {len(devices)} devices")
     dtype = _matrix_dtype(args, device)
     if (device.type == "cuda" and dtype == torch.float32 and not args.precision
             and args.algorithm != "emgpu"):
@@ -262,24 +280,37 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
             if args.alphas:
                 alpha = np.array([float(v) for v in args.alphas.split(",")], dtype=np.float64)
 
-            problem = pack_problem(lik, alpha=alpha, dtype=dtype, device=device)
+            problem = pack_problem(lik, alpha=alpha, dtype=dtype, device=device,
+                                   devices=devices)
+            trace = contextlib.nullcontext()
+            if args.trace_dir:
+                from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+                activities = [ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(ProfilerActivity.CUDA)
+                trace = profile(activities=activities,
+                                on_trace_ready=tensorboard_trace_handler(args.trace_dir))
             t_fit = time.time()
-            res = fit_result(
-                problem,
-                args.algorithm,
-                tol=args.tol,
-                max_iters=args.max_iters,
-                verbose=args.verbose,
-                log=log,
-                refine=not args.no_precision_escalation,
-            )
-            theta = res.theta.cpu().numpy()  # waits for the device
+            with trace:
+                res = fit_result(
+                    problem,
+                    args.algorithm,
+                    tol=args.tol,
+                    max_iters=args.max_iters,
+                    verbose=args.verbose,
+                    log=log,
+                    refine=not args.no_precision_escalation,
+                )
+                theta = res.theta.cpu().numpy()  # waits for the device
             t_fit = time.time() - t_fit
             n_it = max(res.n_iters, 1)
             log(
                 f"  optimizer finished after {res.n_iters} iterations "
                 f"({t_fit:.2f}s, {n_it / t_fit:.2f} it/s)"
             )
+            if args.trace_dir:
+                log(f"  wrote profiler trace to {args.trace_dir}")
 
             if args.run_rate:
                 print(
@@ -302,15 +333,16 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
 
             sample.abundances = theta
             # The (E, G) probability matrix is built only when an output
-            # consumes it (probs files / binning).
+            # consumes it (probs files / binning), and gathered to the root
+            # process, which alone writes them.
+            if args.bin_reads and args.read_likelihood:
+                raise RuntimeError("--bin-reads can't be used with --read-likelihood")
             gamma_host = None
             if args.print_probs or args.write_probs or args.bin_reads:
-                gamma_host = res.gamma().cpu().numpy()
+                gamma_host = mesh.to_host(res.gamma())  # None off the root process
                 sample.gamma = gamma_host
 
-            if args.bin_reads:
-                if args.read_likelihood:
-                    raise RuntimeError("--bin-reads can't be used with --read-likelihood")
+            if args.bin_reads and is_root:
                 if args.target_groups:
                     target_names = args.target_groups.split(",")
                 else:
@@ -325,9 +357,9 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
                     write_bin(stream, bins[name])
                     stream.close()
 
-            if args.print_probs:
+            if args.print_probs and is_root:
                 write_probs(sys.stdout, estimated_names, gamma_host, zero_names)
-            if args.write_probs:
+            if args.write_probs and is_root:
                 stream = out.probs()
                 write_probs(stream, estimated_names, gamma_host, zero_names)
                 stream.close()
@@ -336,14 +368,19 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
             # sharing the likelihood matrix (the reference refits serially,
             # src/mSWEEP.cpp:496-518).  The draws stay on the host in
             # numpy, so the JAX package and the port draw the same batch
-            # from --seed.
+            # from --seed; every process of a distributed run draws the
+            # whole batch, from a random seed that process 0 picks when
+            # --seed is not given (msweep_tpu/cli.py:494-508).
             if args.iters > 0:
                 log(f"Running estimation with {args.iters} bootstrap iterations")
+                seed = args.seed
+                if seed == SEED_SENTINEL and mesh.process_group_up():
+                    seed = mesh.broadcast_from_root(
+                        int(np.random.default_rng().integers(0, 2**31 - 1)))
                 resampler = BootstrapResampler(
-                    lik.ec_counts, bootstrap_count=args.bootstrap_count, seed=args.seed
+                    lik.ec_counts, bootstrap_count=args.bootstrap_count, seed=seed
                 )
-                batch = torch.as_tensor(resampler.resample_batch(args.iters),
-                                        dtype=problem.counts.dtype, device=device)
+                batch = resampler.resample_batch(args.iters)
                 family = algorithm_family(args.algorithm)
                 batch_fit = fit_rcg_batch if family == "rcg" else fit_em_batch
                 log(f"  {family} bootstrap: impl={pick_impl(problem)} replicates={args.iters}")
@@ -402,12 +439,14 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
             if "/" in prefix and not os.path.isdir(prefix[: prefix.rfind("/")]):
                 raise RuntimeError(f"directory {prefix[: prefix.rfind('/')]} does not exist")
             run_one_sample(
-                OutfileDesignator(prefix, n_groupings, args.compress, args.compression_level),
+                OutfileDesignator(prefix, n_groupings, args.compress, args.compression_level,
+                                  root=is_root),
                 paths,
             )
     else:
         run_one_sample(
-            OutfileDesignator(args.output, n_groupings, args.compress, args.compression_level),
+            OutfileDesignator(args.output, n_groupings, args.compress, args.compression_level,
+                              root=is_root),
             alignment_paths,
         )
 

@@ -41,19 +41,21 @@ def algorithm_family(algorithm: str) -> str:
 def pick_impl(problem: DeviceProblem) -> str:
     """"cuda" (the hand-written kernels) when logL is on a CUDA device,
     "torch" (the plain PyTorch passes) on the CPU."""
-    return "cuda" if problem.logL.is_cuda else "torch"
+    return "cuda" if problem.device.type == "cuda" else "torch"
 
 
 def fit_result(problem: DeviceProblem, algorithm: str = "rcg", *, tol: float = 1e-6,
                max_iters: int = 5000, verbose: bool = False, log=None,
-               refine: bool = True) -> FitResult:
+               refine: bool | str = True) -> FitResult:
     """Dispatch like the reference's rcg_optl wrapper: rcgcpu and rcggpu
     are both the rcg optimizer on the problem's device, emgpu is EM.
-    `refine` controls rcg's precision escalation past the float32 floor.
+    `refine` controls rcg's precision escalation past the float32 floor
+    (True: blind float32 windows then a float64 polish; "exact": the
+    float64 tail alone).
     `log`, if given, receives one line naming the implementation."""
     name = algorithm_family(algorithm)
     if log is not None:
-        log(f"  {name} optimizer: impl={pick_impl(problem)} dtype={problem.logL.dtype}")
+        log(f"  {name} optimizer: impl={pick_impl(problem)} dtype={problem.dtype}")
     if name == "em":
         return fit_em_result(problem, tol=tol, max_iters=max_iters, verbose=verbose)
     return fit_rcg_result(problem, tol=tol, max_iters=max_iters, verbose=verbose,

@@ -17,6 +17,11 @@ in one transfer.  The init is one K5 pass too (its ddot against lse_prev = 0
 is the data term of J), so on a CUDA device every pass over logL of an
 iteration is a kernel launch.
 
+EC-axis sharding (inference/pack.py): each shard runs K5 on its rows and
+keeps its rows' lse; colsum and ddot are reduced across shards and
+processes with DeviceProblem.reduce, so theta, the objective and the
+convergence test are the same on every process.
+
 tol < 0 is bench mode: run exactly max_iters iterations.
 """
 
@@ -30,7 +35,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from msweep_tpu.utils import NEG, PAD_THRESHOLD
+from msweep_tpu.utils import NEG
 
 from ..ops.em_kernels import em_step
 from .pack import DeviceProblem, auto_chunk
@@ -42,7 +47,7 @@ F64 = torch.float64
 @dataclass(frozen=True)
 class EMState:
     theta: torch.Tensor  # (G,) float64
-    lse: torch.Tensor  # (E,) logL's dtype: row logsumexp at the PREVIOUS theta
+    lse: tuple  # per shard, (E_s,) in logL's dtype: row logsumexp at the PREVIOUS theta
     prior: float  # sum (alpha - 1) log theta at the previous theta
     objective: float  # running
     delta: float  # last objective change
@@ -51,12 +56,13 @@ class EMState:
 
 
 def em_state_from_numpy(fields: Mapping[str, Any], device) -> EMState:
-    """An EMState from numpy values by field name, e.g. the fields of a JAX
-    EMState converted with np.asarray (lse keeps its dtype).  Lets two
-    implementations continue from the same mid-trajectory state."""
+    """An EMState of an unsharded problem from numpy values by field name,
+    e.g. the fields of a JAX EMState converted with np.asarray (lse keeps
+    its dtype).  Lets two implementations continue from the same
+    mid-trajectory state."""
     return EMState(
         theta=torch.tensor(np.asarray(fields["theta"], dtype=np.float64), device=device),
-        lse=torch.tensor(np.asarray(fields["lse"]), device=device),
+        lse=(torch.tensor(np.asarray(fields["lse"]), device=device),),
         prior=float(fields["prior"]), objective=float(fields["objective"]),
         delta=float(fields["delta"]), it=int(fields["it"]), done=bool(fields["done"]),
     )
@@ -68,22 +74,27 @@ def _safe_log(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, torch.log(torch.clamp_min(x, tiny)), torch.full_like(x, NEG))
 
 
-def _valid_mask(logL: torch.Tensor) -> torch.Tensor:
-    """Real groups, read off row 0 of logL as the JAX package does (padded
-    columns are NEG there)."""
-    return logL[0, :] > PAD_THRESHOLD
-
-
 def _prior(theta: torch.Tensor, am1: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, am1 * _safe_log(theta), 0.0).sum()
 
 
-def _em_init(logL, counts, am1, valid) -> EMState:
+def _pass(prob: DeviceProblem, counts: list, lse_prev, theta):
+    """K5 on every shard at theta: (per-shard lse, colsum, ddot), colsum
+    and ddot reduced over every row."""
+    logtheta = _safe_log(theta)
+    outs = [em_step(L, c, lp, logtheta.to(L.device))
+            for (L, _), c, lp in zip(prob.shards, counts, lse_prev)]
+    colsum, ddot = prob.reduce([o[1:] for o in outs])
+    return tuple(o[0] for o in outs), colsum, ddot
+
+
+def _em_init(prob: DeviceProblem, counts: list, am1) -> EMState:
     """theta_0 uniform over real groups, lse_0 and the objective J(theta_0)
     from one K5 pass (ddot against lse_prev = 0 is sum_e c_e lse_e)."""
+    valid = prob.valid
     theta0 = valid.to(F64) / valid.sum().to(F64)
-    zeros = torch.zeros(logL.shape[0], dtype=logL.dtype, device=logL.device)
-    lse0, _, data0 = em_step(logL, counts, zeros, _safe_log(theta0))
+    zeros = [torch.zeros(L.shape[0], dtype=L.dtype, device=L.device) for L, _ in prob.shards]
+    lse0, _, data0 = _pass(prob, counts, zeros, theta0)
     return EMState(
         theta=theta0, lse=lse0, prior=0.0,  # unused: step 1 recomputes it
         objective=float(data0 + _prior(theta0, am1, valid)), delta=math.inf, it=0,
@@ -91,24 +102,24 @@ def _em_init(logL, counts, am1, valid) -> EMState:
     )
 
 
-def _step(st: EMState, logL, counts, am1, valid, *, tol: float) -> EMState:
+def _step(st: EMState, prob: DeviceProblem, counts: list, am1, *, tol: float) -> EMState:
     """One EM iteration with one pass over logL (deferred-delta scheme,
     msweep_tpu/inference/em.py:112-169)."""
-    lse, colsum, ddot = em_step(logL, counts, st.lse, _safe_log(st.theta))
-    ddot, prior_now = torch.stack([ddot, _prior(st.theta, am1, valid)]).tolist()
+    lse, colsum, ddot = _pass(prob, counts, st.lse, st.theta)
+    ddot, prior_now = torch.stack([ddot, _prior(st.theta, am1, prob.valid)]).tolist()
     first = st.it == 0
     # The first step has no previous objective to compare against.
     delta = math.inf if first else ddot + (prior_now - st.prior)
     objective = st.objective if first else st.objective + delta
 
-    raw = torch.where(valid, torch.clamp_min(am1 + colsum, 0.0), 0.0)
+    raw = torch.where(prob.valid, torch.clamp_min(am1 + colsum, 0.0), 0.0)
     done = tol >= 0 and not first and abs(delta) < tol
     return EMState(theta=raw / raw.sum(), lse=lse, prior=prior_now, objective=objective,
                    delta=delta, it=st.it + 1, done=st.done or done)
 
 
-def _em_chunk(state: EMState, logL, counts, am1, valid, *, length: int, tol: float,
-              max_it: int | None = None):
+def _em_chunk(state: EMState, prob: DeviceProblem, counts: list, am1, *, length: int,
+              tol: float, max_it: int | None = None):
     """Up to `length` iterations; a converged state freezes, and a state
     that reaches `max_it` iterations is marked done.  Returns (state,
     history) with the objective after each executed step."""
@@ -116,7 +127,7 @@ def _em_chunk(state: EMState, logL, counts, am1, valid, *, length: int, tol: flo
     for _ in range(length):
         if state.done:
             break
-        state = _step(state, logL, counts, am1, valid, tol=tol)
+        state = _step(state, prob, counts, am1, tol=tol)
         if max_it is not None and state.it >= max_it:
             state = replace(state, done=True)
         hist.append(state.objective)
@@ -128,16 +139,15 @@ def _print_chunk_history(it0: int, hist) -> None:
         print(f"  iter {it0 + k + 1}  objective {objective}", file=sys.stderr)
 
 
-def _run_em(problem: DeviceProblem, counts, *, tol: float, max_iters: int, verbose: bool,
-            chunk: int) -> EMState:
-    """The EM loop with a host convergence check per chunk."""
-    logL = problem.logL
+def _run_em(problem: DeviceProblem, counts: list, *, tol: float, max_iters: int,
+            verbose: bool, chunk: int) -> EMState:
+    """The EM loop with a host convergence check per chunk; counts holds
+    each shard's counts."""
     am1 = problem.alpha - 1.0
-    valid = _valid_mask(logL)
-    state = _em_init(logL, counts, am1, valid)
+    state = _em_init(problem, counts, am1)
     it = 0
     while it < max_iters:
-        state, hist = _em_chunk(state, logL, counts, am1, valid, length=chunk, tol=tol,
+        state, hist = _em_chunk(state, problem, counts, am1, length=chunk, tol=tol,
                                 max_it=max_iters)
         if verbose:
             _print_chunk_history(it, hist)
@@ -155,10 +165,10 @@ def _em_final(logL: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     return t - torch.logsumexp(t, dim=1, keepdim=True)
 
 
-def _em_state_pseudocounts(logL, state: EMState, counts) -> torch.Tensor:
+def _em_state_pseudocounts(problem: DeviceProblem, state: EMState, counts: list):
     """w_g = sum_e c_e p_eg at the converged theta: the colsum of one K5
     pass (its lse and ddot are not used)."""
-    return em_step(logL, counts, state.lse, _safe_log(state.theta))[1]
+    return _pass(problem, counts, state.lse, state.theta)[1]
 
 
 def fit_em_result(
@@ -169,17 +179,19 @@ def fit_em_result(
     verbose: bool = False,
 ) -> FitResult:
     """Fit EM on a packed problem.  theta and the pseudocounts come from one
-    pass at the converged theta; the responsibilities only on demand."""
-    c = problem.counts
+    pass at the converged theta; the responsibilities (this process's
+    rows) only on demand."""
+    c = [n for _, n in problem.shards]
     state = _run_em(problem, c, tol=float(tol), max_iters=int(max_iters),
-                    verbose=bool(verbose), chunk=auto_chunk(problem.logL))
-    w = _em_state_pseudocounts(problem.logL, state, c)
+                    verbose=bool(verbose), chunk=auto_chunk(problem))
+    w = _em_state_pseudocounts(problem, state, c)
     return FitResult(
-        theta=w / c.to(F64).sum(),
+        theta=w / problem.row_sum(c),
         n_iters=state.it,
         objective=state.objective,
         pseudocounts=w,
-        _gamma_fn=lambda: _em_final(problem.logL, state.theta),
+        _gamma_fn=lambda: problem.cat([_em_final(L, state.theta.to(L.device))
+                                       for L, _ in problem.shards]),
     )
 
 
@@ -193,13 +205,13 @@ def fit_em_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
     Returns (theta (B, G) float64, iterations (B,), objective (B,)
     float64): abundances from one K5 colsum pass per replicate at its
     converged theta, never a (B, E, G) batch."""
-    logL = problem.logL
-    batch = torch.as_tensor(counts_batch).to(device=logL.device, dtype=logL.dtype)
-    chunk = auto_chunk(logL)
+    batch = [problem.split(c) for c in torch.as_tensor(counts_batch)]
+    chunk = auto_chunk(problem)
     states = [_run_em(problem, c, tol=float(tol), max_iters=int(max_iters), verbose=False,
                       chunk=chunk) for c in batch]
     theta = torch.stack([
-        _em_state_pseudocounts(logL, st, c) / c.to(F64).sum() for st, c in zip(states, batch)
+        _em_state_pseudocounts(problem, st, c) / problem.row_sum(c)
+        for st, c in zip(states, batch)
     ])
     iters = torch.tensor([st.it for st in states])
     objective = torch.tensor([st.objective for st in states], dtype=F64)

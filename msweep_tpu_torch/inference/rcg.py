@@ -29,6 +29,11 @@ one exact float64 bound pass; then a float64 polish applies the true
 per-iteration criterion.  A supervision window that lowers the bound is
 rolled back and the fit continues in float64.
 
+EC-axis sharding (inference/pack.py): every pass runs its kernel on each
+shard of the problem and DeviceProblem.reduce adds the float64 partials
+(and all-reduces them across processes), so the host reads the same
+scalars on every process and every branch agrees.
+
 Bootstrap (fit_rcg_batch): B count vectors share one logL.  The batched
 state carries a leading (B,) axis on every field and lives on the device;
 K3/K4 (ops/rcg_batch_kernels.py) take c by pointer and accept/revert is a
@@ -102,9 +107,10 @@ def _converged(tol: float, delta: float, decreased: bool, just_reset: bool) -> b
 
 def _bound_at(prob: DeviceProblem, state: RCGImplicitState, compute_dtype):
     """(ELBO, N) at gamma = (state.c, state.v) from one K2 absolute pass."""
-    data, colsum = rcg_bound_stats(
-        prob.logL, prob.counts, state.c, state.v, compute_dtype=compute_dtype
-    )
+    data, colsum = prob.reduce([
+        rcg_bound_stats(L, n, state.c, state.v.to(L.device), compute_dtype=compute_dtype)
+        for L, n in prob.shards
+    ])
     n = prob.alpha + colsum
     return float(prob.bound_const + torch.lgamma(n).sum() + data), n
 
@@ -112,13 +118,12 @@ def _bound_at(prob: DeviceProblem, state: RCGImplicitState, compute_dtype):
 def _rcg_init_implicit(prob: DeviceProblem) -> RCGImplicitState:
     """(c, v) = (0, 0): gamma_0 uniform over real groups, with N_0 and the
     exact initial bound from one pass in the matrix's dtype."""
-    G = prob.logL.shape[1]
-    zeros = torch.zeros((G,), dtype=F64, device=prob.logL.device)
+    zeros = torch.zeros((prob.n_groups,), dtype=F64, device=prob.device)
     st = RCGImplicitState(
         c=0.0, v=zeros, e=0.0, f=zeros, n_counts=zeros, oldnorm=1.0, bound=0.0,
         delta=math.inf, it=0, done=False, just_reset=False,
     )
-    bound0, n0 = _bound_at(prob, st, prob.logL.dtype)
+    bound0, n0 = _bound_at(prob, st, prob.dtype)
     return replace(st, n_counts=n0, bound=bound0)
 
 
@@ -129,9 +134,12 @@ def _step(st: RCGImplicitState, prob: DeviceProblem, *, tol: float, compute_dtyp
     `blind_tau` puts the step in blind mode for the escalation tail: it
     never declares convergence itself and reverts only on decreases larger
     than tau, the measured float32 noise scale."""
-    logL, counts = prob.logL, prob.counts
     psi = torch.special.digamma(st.n_counts)
-    newnorm = float(rcg_norm(logL, counts, psi, st.c, st.v, compute_dtype=compute_dtype))
+    (newnorm,) = prob.reduce([
+        (rcg_norm(L, n, psi.to(L.device), st.c, st.v.to(L.device), compute_dtype=compute_dtype),)
+        for L, n in prob.shards
+    ])
+    newnorm = float(newnorm)
     if st.just_reset or st.it == 0 or st.oldnorm <= 0:
         beta = 0.0
     else:
@@ -142,9 +150,11 @@ def _step(st: RCGImplicitState, prob: DeviceProblem, *, tol: float, compute_dtyp
     c_new = st.c + e_new
     v_new = st.v + f_new
 
-    colsum, elbo_delta = rcg_update(
-        logL, counts, st.c, st.v, c_new, v_new, compute_dtype=compute_dtype
-    )
+    colsum, elbo_delta = prob.reduce([
+        rcg_update(L, n, st.c, st.v.to(L.device), c_new, v_new.to(L.device),
+                   compute_dtype=compute_dtype)
+        for L, n in prob.shards
+    ])
     n_new = prob.alpha + colsum
     dirichlet_delta = (torch.lgamma(n_new) - torch.lgamma(st.n_counts)).sum()
     delta = float(elbo_delta + dirichlet_delta)
@@ -190,15 +200,15 @@ def _print_chunk_history(it0: int, hist) -> None:
 
 
 def _run_rcg(prob: DeviceProblem, *, tol: float, max_iters: int, verbose: bool,
-             chunk: int, refine: bool = True) -> RCGImplicitState:
+             chunk: int, refine: bool | str = True) -> RCGImplicitState:
     """The optimizer loop in the matrix's dtype, then (float32 matrices,
-    `refine`) the escalation past the float32 floor."""
-    logL = prob.logL
+    `refine`) the escalation past the float32 floor; refine="exact" takes
+    the float64 tail without blind windows."""
     state = _rcg_init_implicit(prob)
     it = 0
     while it < max_iters:
         state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
-                                 compute_dtype=logL.dtype, max_it=max_iters)
+                                 compute_dtype=prob.dtype, max_it=max_iters)
         if verbose:
             _print_chunk_history(it, hist)
         it += chunk
@@ -208,24 +218,26 @@ def _run_rcg(prob: DeviceProblem, *, tol: float, max_iters: int, verbose: bool,
     if (
         refine
         and tol >= 0
-        and logL.dtype == torch.float32
+        and prob.dtype == torch.float32
         and state.done
         and not (0 <= state.delta < tol)  # floor stop, not true tol
     ):
         state, it = _escalate(state, prob, it=it, max_iters=max_iters, tol=tol,
-                              chunk=chunk, verbose=verbose)
+                              chunk=chunk, verbose=verbose, exact=(refine == "exact"))
     return state
 
 
 def _escalate(state: RCGImplicitState, prob: DeviceProblem, *, it: int, max_iters: int,
-              tol: float, chunk: int, verbose: bool):
+              tol: float, chunk: int, verbose: bool, exact: bool = False):
     """Past-the-floor refinement to float64 convergence: blind float32
     windows supervised by the exact float64 bound, then a float64 polish
-    (or a float64 fallback after a rolled-back window)."""
+    (or a float64 fallback after a rolled-back window).  `exact` skips the
+    blind windows and steps in float64 from the re-anchored state."""
     if verbose:
         print(
             f"  f32 numerical floor at iter {state.it} (last accepted delta "
-            f"{state.delta:.3e}); escalating (blind-f32 tail, f64 supervision)",
+            f"{state.delta:.3e}); escalating "
+            f"({'exact-f64 tail' if exact else 'blind-f32 tail, f64 supervision'})",
             file=sys.stderr,
         )
     # Re-anchor in float64: the float32-era N carries ~1e-7 relative
@@ -235,13 +247,38 @@ def _escalate(state: RCGImplicitState, prob: DeviceProblem, *, it: int, max_iter
     state = replace(state, n_counts=n64, bound=bound0, done=False, just_reset=True,
                     oldnorm=1.0)
 
+    if not exact:
+        state, it = _blind_windows(state, prob, bound0, it=it, max_iters=max_iters, tol=tol,
+                                   chunk=chunk, verbose=verbose)
+        if state.done or it >= max_iters:
+            return state, it
+        # Float64 polish after blind convergence, or the full fallback
+        # after a rollback.  Momentum restarts: the blind phase's noisy
+        # direction costs iterations in the exact tail.
+        state = replace(state, just_reset=True, oldnorm=1.0)
+    while it < max_iters:
+        state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol, compute_dtype=F64,
+                                 max_it=max_iters)
+        if verbose:
+            _print_chunk_history(it, hist)
+        it += chunk
+        if state.done:
+            break
+    return state, it
+
+
+def _blind_windows(state: RCGImplicitState, prob: DeviceProblem, bound0: float, *, it: int,
+                   max_iters: int, tol: float, chunk: int, verbose: bool):
+    """Blind float32 windows of `chunk` steps, each checked by one exact
+    float64 bound pass, until the supervised gain per step drops below
+    tol; a window that lowers the bound is rolled back."""
     d0 = state.delta
     tau = 4.0 * abs(d0) if math.isfinite(d0) else 0.0
     bound_prev = bound0
     while it < max_iters:
         ckpt = state
         state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
-                                 compute_dtype=prob.logL.dtype, max_it=max_iters,
+                                 compute_dtype=prob.dtype, max_it=max_iters,
                                  blind_tau=tau)
         if verbose:
             _print_chunk_history(it, hist)
@@ -267,29 +304,15 @@ def _escalate(state: RCGImplicitState, prob: DeviceProblem, *, it: int, max_iter
             print(f"  iter {state.it}  f64 bound {bound_now}  (avg delta/iter {davg:.3e})",
                   file=sys.stderr)
         if davg < tol:
-            break  # blind phase done: polish below
+            break  # blind phase done: the float64 polish follows
         bound_prev = bound_now
-    if state.done or it >= max_iters:
-        return state, it
-    # Float64 polish after blind convergence, or the full fallback after a
-    # rollback.  Momentum restarts: the blind phase's noisy direction costs
-    # iterations in the exact tail.
-    state = replace(state, just_reset=True, oldnorm=1.0)
-    while it < max_iters:
-        state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol, compute_dtype=F64,
-                                 max_it=max_iters)
-        if verbose:
-            _print_chunk_history(it, hist)
-        it += chunk
-        if state.done:
-            break
     return state, it
 
 
 def _state_theta(state: RCGImplicitState, prob: DeviceProblem) -> torch.Tensor:
     """theta = (N - alpha) / sum(counts): by the definition of N this is
     mixture_components of the converged gamma, without building gamma."""
-    return (state.n_counts - prob.alpha) / prob.counts.to(F64).sum()
+    return (state.n_counts - prob.alpha) / prob.row_sum([n for _, n in prob.shards])
 
 
 def fit_rcg_result(
@@ -299,12 +322,13 @@ def fit_rcg_result(
     max_iters: int = 5000,
     verbose: bool = False,
     chunk: int | None = None,
-    refine: bool = True,
+    refine: bool | str = True,
 ) -> FitResult:
     """Fit rcg on a packed problem.  theta and the pseudocounts come from
-    the O(G) state; gamma is built only by FitResult.gamma()."""
+    the O(G) state; gamma (this process's rows) is built only by
+    FitResult.gamma()."""
     if chunk is None:
-        chunk = auto_chunk(problem.logL)
+        chunk = auto_chunk(problem)
     state = _run_rcg(problem, tol=float(tol), max_iters=int(max_iters),
                      verbose=bool(verbose), chunk=chunk, refine=refine)
     return FitResult(
@@ -312,7 +336,8 @@ def fit_rcg_result(
         n_iters=state.it,
         objective=state.bound,
         pseudocounts=state.n_counts - problem.alpha,
-        _gamma_fn=lambda: materialize_gamma(problem.logL, state.c, state.v),
+        _gamma_fn=lambda: problem.cat([materialize_gamma(L, state.c, state.v.to(L.device))
+                                       for L, _ in problem.shards]),
     )
 
 
@@ -356,39 +381,52 @@ def _where_b(mask: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.
     return torch.where(mask.view(-1, *([1] * (new.dim() - 1))), old, new)
 
 
-def _rcg_init_implicit_batch(prob: DeviceProblem, countsT: torch.Tensor, asum0: float,
+def _update_batch(prob: DeviceProblem, countsT: list, c_old, v_old, c_new, v_new):
+    """K4 on every shard, reduced: (colsum (B, G), data-term change (B,))."""
+    def to(x, L):
+        return None if x is None else x.to(L.device)
+
+    return prob.reduce([
+        rcg_update_batch(L, cT, to(c_old, L), to(v_old, L), to(c_new, L), to(v_new, L))
+        for (L, _), cT in zip(prob.shards, countsT)
+    ])
+
+
+def _rcg_init_implicit_batch(prob: DeviceProblem, countsT: list, asum0: float,
                              csum0: float) -> RCGBatchState:
     """Init for B replicates with one K4 pass in absolute mode at (c, v) =
-    (0, 0): N_0 and the data term of every replicate.  bound_const depends
-    on each replicate's total count: the constant of the original counts
-    (prob.bound_const, at csum0 = sum of counts and asum0 = sum of alpha)
-    is shifted by the lgamma ratio (msweep_tpu/inference/rcg.py:1037-1044)."""
-    logL = prob.logL
-    B, G = countsT.shape[1], logL.shape[1]
-    zeros_b = torch.zeros((B,), dtype=F64, device=logL.device)
-    zeros_bg = torch.zeros((B, G), dtype=F64, device=logL.device)
-    colsum0, data0 = rcg_update_batch(logL, countsT, None, None, zeros_b, zeros_bg)
+    (0, 0): N_0 and the data term of every replicate.  countsT holds each
+    shard's (E_s, B) counts.  bound_const depends on each replicate's total
+    count: the constant of the original counts (prob.bound_const, at csum0
+    = sum of counts and asum0 = sum of alpha) is shifted by the lgamma
+    ratio (msweep_tpu/inference/rcg.py:1037-1044)."""
+    B, G, dev = countsT[0].shape[1], prob.n_groups, prob.device
+    zeros_b = torch.zeros((B,), dtype=F64, device=dev)
+    zeros_bg = torch.zeros((B, G), dtype=F64, device=dev)
+    colsum0, data0 = _update_batch(prob, countsT, None, None, zeros_b, zeros_bg)
     n0 = prob.alpha[None, :] + colsum0
-    csum_b = countsT.to(F64).sum(dim=0)
-    a0 = torch.tensor(asum0, dtype=F64, device=logL.device)
+    csum_b = prob.row_sum(countsT)
+    a0 = torch.tensor(asum0, dtype=F64, device=dev)
     bc_b = prob.bound_const + torch.lgamma(a0 + csum0) - torch.lgamma(a0 + csum_b)
     return RCGBatchState(
         c=zeros_b, v=zeros_bg, e=zeros_b, f=zeros_bg, n_counts=n0,
         oldnorm=torch.ones_like(zeros_b), bound=bc_b + torch.lgamma(n0).sum(dim=1) + data0,
         delta=torch.full_like(zeros_b, math.inf),
-        it=torch.zeros((B,), dtype=torch.int64, device=logL.device),
-        done=torch.zeros((B,), dtype=torch.bool, device=logL.device),
-        just_reset=torch.zeros((B,), dtype=torch.bool, device=logL.device),
+        it=torch.zeros((B,), dtype=torch.int64, device=dev),
+        done=torch.zeros((B,), dtype=torch.bool, device=dev),
+        just_reset=torch.zeros((B,), dtype=torch.bool, device=dev),
     )
 
 
-def _step_batch(st: RCGBatchState, prob: DeviceProblem, countsT: torch.Tensor, *,
+def _step_batch(st: RCGBatchState, prob: DeviceProblem, countsT: list, *,
                 tol: float) -> RCGBatchState:
     """One batched iteration: K3, the O(B G) recursion, K4, and
     per-replicate accept/revert, all on the device."""
-    logL = prob.logL
     psi = torch.special.digamma(st.n_counts)
-    newnorm = rcg_norm_batch(logL, countsT, psi, st.c, st.v)
+    (newnorm,) = prob.reduce([
+        (rcg_norm_batch(L, cT, psi.to(L.device), st.c.to(L.device), st.v.to(L.device)),)
+        for (L, _), cT in zip(prob.shards, countsT)
+    ])
     no_momentum = st.just_reset | (st.it == 0) | (st.oldnorm <= 0)
     beta = torch.where(no_momentum, torch.zeros_like(newnorm), newnorm / st.oldnorm)
 
@@ -397,7 +435,7 @@ def _step_batch(st: RCGBatchState, prob: DeviceProblem, countsT: torch.Tensor, *
     c_new = st.c + e_new
     v_new = st.v + f_new
 
-    colsum, elbo_delta = rcg_update_batch(logL, countsT, st.c, st.v, c_new, v_new)
+    colsum, elbo_delta = _update_batch(prob, countsT, st.c, st.v, c_new, v_new)
     n_new = prob.alpha[None, :] + colsum
     delta = elbo_delta + (torch.lgamma(n_new) - torch.lgamma(st.n_counts)).sum(dim=1)
 
@@ -417,7 +455,7 @@ def _step_batch(st: RCGBatchState, prob: DeviceProblem, countsT: torch.Tensor, *
     )
 
 
-def _rcg_chunk_batch(state: RCGBatchState, prob: DeviceProblem, countsT: torch.Tensor, *,
+def _rcg_chunk_batch(state: RCGBatchState, prob: DeviceProblem, countsT: list, *,
                      length: int, tol: float, max_it: int | None = None) -> RCGBatchState:
     """`length` batched iterations; replicates that are done keep their
     state (per-replicate where), and reaching `max_it` marks a replicate
@@ -440,14 +478,13 @@ def fit_rcg_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
     replicates advance in lockstep chunks, each freezing at its own
     convergence; the host checks done.all() once per chunk.
 
-    Returns (theta (B, G) float64, iterations (B,), bound (B,) float64):
-    theta = (N - alpha) / sum(counts) per replicate, from the state, never
-    a (B, E, G) gamma batch."""
-    logL = problem.logL
-    countsT = torch.as_tensor(counts_batch).to(device=logL.device, dtype=logL.dtype).T
-    countsT = countsT.contiguous()
+    counts_batch is (B, E) over every row; each shard keeps its (E_s, B)
+    columns.  Returns (theta (B, G) float64, iterations (B,), bound (B,)
+    float64): theta = (N - alpha) / sum(counts) per replicate, from the
+    state, never a (B, E, G) gamma batch."""
+    countsT = [part.T.contiguous() for part in problem.split(counts_batch)]
     asum0 = float(problem.alpha[: problem.n_groups].sum())
-    csum0 = float(problem.counts.to(F64).sum())
+    csum0 = float(problem.row_sum([n for _, n in problem.shards]))
     state = _rcg_init_implicit_batch(problem, countsT, asum0, csum0)
     it = 0
     while it < max_iters:
@@ -456,6 +493,6 @@ def fit_rcg_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
         it += chunk
         if tol >= 0 and bool(state.done.all()):
             break
-    csum_b = countsT.to(F64).sum(dim=0)
+    csum_b = problem.row_sum(countsT)
     theta = (state.n_counts - problem.alpha[None, :]) / csum_b[:, None]
     return theta, state.it, state.bound

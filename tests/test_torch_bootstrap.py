@@ -137,7 +137,7 @@ def test_batch_init_matches_jax():
     st_j = jrcg._rcg_init_implicit_batch(jnp.asarray(logL), jnp.asarray(batch.T),
                                          jnp.asarray(alpha), bc, asum0, csum0)
     p = problem_from_numpy(logL, counts, alpha, bc, "cpu")
-    st_p = R._rcg_init_implicit_batch(p, _t(batch.T), asum0, csum0)
+    st_p = R._rcg_init_implicit_batch(p, [_t(batch.T)], asum0, csum0)
     np.testing.assert_allclose(st_p.n_counts.numpy(), np.asarray(st_j.n_counts), rtol=1e-12)
     np.testing.assert_allclose(st_p.bound.numpy(), np.asarray(st_j.bound), rtol=1e-12)
     assert not st_p.c.any() and not st_p.v.any() and not st_p.done.any()
@@ -217,7 +217,7 @@ def test_batch_state_from_numpy_continuation():
     assert sp.it.tolist() == [6] * B
     st = jrcg._rcg_chunk_batch(st, jl, jcT, ja, length=5, tol=1e-6, interpret=True)
     p = problem_from_numpy(logL, counts, alpha, bc, "cpu")
-    sp = R._rcg_chunk_batch(sp, p, _t(batch.T, torch.float32), length=5, tol=1e-6)
+    sp = R._rcg_chunk_batch(sp, p, [_t(batch.T, torch.float32)], length=5, tol=1e-6)
     assert sp.it.tolist() == np.asarray(st.it)[:B].tolist()
     assert sp.just_reset.tolist() == np.asarray(st.just_reset)[:B].tolist()
     assert sp.done.tolist() == np.asarray(st.done)[:B].tolist()

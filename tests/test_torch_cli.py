@@ -1,9 +1,10 @@
 """The port's command line (msweep_tpu_torch/cli.py) and its boundaries:
 the golden run on the CPU, the EM, bootstrap and RATE runs against the JAX
 package's CLI on the same data, no JAX anywhere in the package, no silent
-move to the CPU, and a clear refusal of what is not ported yet."""
+move to the CPU, and --trace-dir."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -89,16 +90,23 @@ def test_cuda_backend_without_gpu_fails(monkeypatch, tmp_path, capsys):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--shards", "2"],
-    ["--distributed-coordinator", "localhost:1234"],
-    ["--trace-dir", "trace"],
-])
-def test_unported_flags_fail(flags, tmp_path, capsys):
-    rc = cli.main(_golden_args(tmp_path / "run") + ["--backend", "cpu"] + flags)
-    assert rc == 1
-    assert "not yet ported" in capsys.readouterr().err
-    assert not os.listdir(tmp_path)
+def test_trace_dir(tmp_path, capsys):
+    """--trace-dir wraps the fit in torch.profiler (msweep_tpu/cli.py:
+    400-428 with jax.profiler): a trace file that parses as JSON and holds
+    events, the log line, and the abundances of the run without it."""
+    args = _golden_args(tmp_path / "plain") + ["--backend", "cpu", "--precision", "double"]
+    assert cli.main(args) == 0
+    trace_dir = tmp_path / "trace"
+    args = _golden_args(tmp_path / "traced") + ["--backend", "cpu", "--precision", "double",
+                                                "--verbose", "--trace-dir", str(trace_dir)]
+    assert cli.main(args) == 0
+    assert f"wrote profiler trace to {trace_dir}" in capsys.readouterr().err
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    assert len(traces) == 1
+    events = json.load(open(trace_dir / traces[0]))["traceEvents"]
+    assert len(events) > 0
+    assert (open(tmp_path / "traced_abundances.txt").read()
+            == open(tmp_path / "plain_abundances.txt").read())
 
 
 @pytest.fixture(scope="module")

@@ -166,14 +166,14 @@ def test_em_state_from_numpy_continuation():
     st = jem._em_init(jl, jc, ja)
     st, _ = jem._em_chunk(st, jl, jc, ja, length=7, tol=1e-6, impl="pallas_interpret")
     sp = E_.em_state_from_numpy({k: np.asarray(v) for k, v in st._asdict().items()}, "cpu")
-    assert sp.it == 7 and sp.lse.dtype == torch.float32
+    assert sp.it == 7 and sp.lse[0].dtype == torch.float32
     st, _ = jem._em_chunk(st, jl, jc, ja, length=5, tol=1e-6, impl="pallas_interpret")
-    L, c = _t(logL), _t(counts)
-    sp, hist = E_._em_chunk(sp, L, c, _t(alpha) - 1.0, E_._valid_mask(L), length=5, tol=1e-6)
+    p = problem_from_numpy(logL, counts, alpha, bc, "cpu")
+    sp, hist = E_._em_chunk(sp, p, [p.counts], p.alpha - 1.0, length=5, tol=1e-6)
     assert len(hist) == 5 and sp.it == int(st.it) == 12
     np.testing.assert_allclose(sp.theta.numpy(), np.asarray(st.theta), rtol=0, atol=1e-6)
     np.testing.assert_allclose(sp.objective, float(st.objective), rtol=1e-6)
-    np.testing.assert_allclose(sp.lse.numpy(), np.asarray(st.lse), rtol=1e-6)
+    np.testing.assert_allclose(sp.lse[0].numpy(), np.asarray(st.lse), rtol=1e-6)
     assert sp.done == bool(st.done)
 
 

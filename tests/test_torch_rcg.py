@@ -225,3 +225,34 @@ def test_escalation_on_community_matches_jax():
     assert e_esc < 5e-6, f"escalated theta error {e_esc:.2e}"
     assert e_esc < e_raw / 100
     assert r_esc.n_iters > r_raw.n_iters
+
+
+def test_exact_refine_on_community_matches_jax(capsys):
+    """refine="exact" (msweep_tpu/inference/rcg.py:622, :678, :743-753):
+    past the float32 floor both packages re-anchor in float64 and step in
+    float64 to tol, with no blind float32 window.  The bars are
+    test_escalation_on_community_matches_jax's: at tol 1e-6 the iteration
+    count in its band around JAX's float64 count, at tol 1e-8 theta within
+    5e-6 of JAX's float64 fit."""
+    lik = make_community_likelihood(4096, 128, seed=2, similarity=0.99, cluster_size=8,
+                                    present_frac=0.1)
+    j64 = jax_pack_problem(lik, dtype=jnp.float64)
+    j32 = jax_pack_problem(lik, dtype=jnp.float32)
+    p32 = pack_problem(lik, dtype=torch.float32, device="cpu")
+
+    kw = dict(tol=1e-6, max_iters=3000)
+    it_64 = int(jax_fit_rcg_result(j64, impl="xla64", **kw).n_iters)
+    capsys.readouterr()
+    jax_fit_rcg_result(j32, impl="pallas_interpret", refine="exact", verbose=True, **kw)
+    log_j = capsys.readouterr().err
+    it_p = R.fit_rcg_result(p32, refine="exact", verbose=True, **kw).n_iters
+    log_p = capsys.readouterr().err
+    for log in (log_j, log_p):
+        assert "escalating (exact-f64 tail)" in log
+        assert "blind" not in log and "f64 bound" not in log
+    assert it_64 - max(5, it_64 // 10) <= it_p <= it_64 + max(5, it_64 // 2), (it_64, it_p)
+
+    kw = dict(tol=1e-8, max_iters=3000)
+    theta_64 = np.asarray(jax_fit_rcg_result(j64, impl="xla64", **kw).theta)[:128]
+    e_exact = np.abs(R.fit_rcg_result(p32, refine="exact", **kw).theta.numpy() - theta_64).max()
+    assert e_exact < 5e-6, f"exact-tail theta error {e_exact:.2e}"

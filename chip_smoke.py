@@ -13,9 +13,12 @@ Phases (each raises on failure, and the script exits non-zero):
 3. kernels: every instantiation of K1, K2 (both modes), K3, K4 (both
    modes, B in 1, 3, 8, 13), K5 and T1-T3 against its plain PyTorch
    version on the card, on inputs drawn from a seed, at ragged and wide
-   shapes and a JAX-style padded problem; a rerun must give the same bits,
-   and each K3/K4 replicate the bits of K1/K2 on its own column; then
-   kernel and plain times at 2,301,952 x 512 (K3/K4 at B = 8);
+   shapes (G in 1, 4, 33, 512, 4096, 5000, 30000) and a JAX-style padded
+   problem; a rerun must give the same bits, and each K3/K4 replicate the
+   bits of K1/K2 on its own column; then kernel and plain times at 2,301,952 x 512
+   (K3/K4 at B = 8), each beside its bound (the larger of the bytes it
+   must move at 3.35 TB/s and its operations at the data sheet's peak) and
+   the share of the bound it reaches;
 4. the CLI on tests/golden through msweep_tpu_torch.cli.main on the card:
    rcg in float32 with escalation and --precision double against the golden
    files; emgpu (float64 and --emprecision float), --iters 4 --seed 7
@@ -24,7 +27,8 @@ Phases (each raises on failure, and the script exits non-zero):
 5. the main path at the reference benchmark's efaec-1 scale: the synthetic
    community likelihood (2,301,952 ECs x 512 groups) packed in float32 and
    fitted with fit_result("rcgcpu", tol=1e-6) with escalation; theta held
-   against a float64 fit of the same problem;
+   against a float64 fit of the same problem; K1/K2 launches by
+   instantiation;
 6. EM on the same community with the emgpu default policy (float64
    matrix, tol 1e-6), then 20 iterations through K5 and through the plain
    version from the same init, in float64 and float32;
@@ -47,7 +51,9 @@ runs and reads them just after.
 
 The last lines are the kernels' JSON record, the card as nvidia-smi names
 it, and {"ok": true, "device": {...}}.  Exits non-zero, printing no
-result, where torch.cuda.is_available() is false.  Imports no JAX.
+result, where torch.cuda.is_available() is false.  Imports neither JAX nor
+anything of the JAX package (msweep_tpu): the port carries its own host
+layers, and the run fails if either was loaded.
 """
 
 from __future__ import annotations
@@ -66,13 +72,28 @@ from dataclasses import replace
 
 import numpy as np
 
+START_MODULES = set(sys.modules)  # a site hook may load modules before this script
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLD = os.path.join(REPO, "tests", "golden")
 E_FULL, G_FULL = 2_301_952, 512  # efaec-1: 8192 * 281 ECs (bench.py:360)
-KERNEL_SHAPES = [(1_000_003, 4), (65_536, 512), (4_099, 4096), (777, 5_000), (1, 1), (37, 33)]
+KERNEL_SHAPES = [(1_000_003, 4), (65_536, 512), (4_099, 4096), (777, 5_000), (1, 1), (37, 33),
+                 (9, 30_000)]  # the last: a row of K2/K4 weights wider than shared memory
 PADDED = (4_096, 600, 72, 88)  # E, G, padded rows, padded columns
 BATCH_SIZES = (1, 3, 8, 13)  # bootstrap replicates for K3/K4
 SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
+
+# The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
+# device memory at 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64
+# outside the tensor cores.  Operations per cell of the algorithm, each
+# add, multiply, compare and exp counted as one (an exp is more on these
+# units, so the operations bound is a floor): K1 20 (t, ghat, two maxes,
+# two exps and sums, s, w, w s^2), K2 25 (two softmaxes with their row
+# terms, the column add), K3/K4 those per replicate, K5 7, T1 1, T2 4,
+# T3 8.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {4: 67e12, 8: 34e12}  # by the compute type's size in bytes
+OPS_PER_CELL = {"rcg_norm": 20, "rcg_update": 25, "rcg_norm_batch": 20, "rcg_update_batch": 25,
+                "em_step": 7, "prof_read": 1, "prof_exp": 4, "prof_exp2": 8}
 
 
 def _say(msg: str) -> None:
@@ -84,7 +105,7 @@ def _inputs(torch, E, G, ldtype, seed, pad_rows=0, pad_cols=0):
     and (psi, c_old, v_old, c_new, v_new) away from convergence, all drawn
     on the card from `seed`.  Padded rows get count 0 and NEG cells,
     padded columns NEG cells, as the JAX package pads."""
-    from msweep_tpu.utils import NEG
+    from msweep_tpu_torch.utils import NEG
 
     dev, f64 = torch.device("cuda"), torch.float64
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -117,7 +138,7 @@ def _row_abs_sum(torch, K, L, counts, c, v, cd):
 def _em_inputs(torch, L, counts, seed):
     """lse_prev near the row logsumexps and logtheta with ~20% of theta at
     0 (NEG there), as the EM loop hands them to K5."""
-    from msweep_tpu.utils import NEG
+    from msweep_tpu_torch.utils import NEG
 
     dev, f64 = L.device, torch.float64
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -293,6 +314,25 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(name, E, G, lsize, csize, B=1):
+    """(least ms, "bytes" or "operations") of one call of kernel `name` on
+    an (E, G) matrix of `lsize`-byte cells computed in `csize`-byte
+    floats, B replicates: each input read once and each output written
+    once at HBM_BYTES_PER_S, against OPS_PER_CELL at the peak rate."""
+    cells = E * G
+    moved = {
+        "rcg_norm": cells * lsize + E * lsize + 2 * G * csize + 8,
+        "rcg_update": cells * lsize + E * lsize + 2 * G * csize + (G + 1) * 8,
+        "rcg_norm_batch": cells * lsize + E * B * lsize + (2 * G + 1) * B * csize + B * 8,
+        "rcg_update_batch": (cells * lsize + E * B * lsize + (2 * G + 2) * B * csize
+                             + (G + 1) * B * 8),
+        "em_step": cells * lsize + E * lsize + 2 * E * csize + G * csize + (G + 1) * 8,
+    }.get(name, cells * 4 + 4 + E * 4)  # T1-T3: x, s, the (E,) output
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = OPS_PER_CELL[name] * cells * B / PEAK_OPS_PER_S[csize]
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
 def _busy_share(torch, fn, what="32 float32 iterations"):
     """Device busy share of fn() (a few iterations in bench mode): kernel
     time from torch.profiler over the host wall time."""
@@ -394,10 +434,15 @@ def phase_kernels(torch):
                                                            v_new, **kw), 3),
             ),
         }
+        csize = torch.empty((), dtype=cd).element_size()
+        bounds = {name: bound_ms(name, E, G, L.element_size(), csize, 8 if "batch" in name else 1)
+                  for name in OPS_PER_CELL}
         for name, (ms, plain_ms) in times.items():
             gb = L.numel() * L.element_size() / 1e9
             if name in ("rcg_norm", "rcg_update"):
-                _say(f"  {name} {suffix}: kernel {ms:.4f} ms ({gb / ms:.1f} TB/s of logL), "
+                bms, by = bounds[name]
+                _say(f"  {name} {suffix}: kernel {ms:.4f} ms ({gb / ms:.2f} TB/s of logL), "
+                     f"bound {bms:.4f} ms ({by}), share of bound {bms / ms:.3f}, "
                      f"plain {plain_ms:.4f} ms, max abs err {errs[name]:.3e}")
         if ld == cd:
             em_in = _em_inputs(torch, L, counts, 7)
@@ -428,14 +473,20 @@ def phase_kernels(torch):
         for name, (ms, plain_ms) in times.items():
             if name in ("em_step", "rcg_norm_batch", "rcg_update_batch") + SWEEPS:
                 b = " (B=8)" if "batch" in name else ""
-                _say(f"  {name}{b} {suffix}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                bms, by = bounds[name]
+                _say(f"  {name}{b} {suffix}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                     f"share of bound {bms / ms:.3f}, plain {plain_ms:.4f} ms, "
                      f"max abs err {errs[name]:.3e}")
         # The kernels' JSON record: the float32 passes of the rcg paths
         # (default run and bootstrap), and K5 in float64, the emgpu default.
+        # No single PyTorch call computes any of these functions, so none
+        # has a library time.
         for name, (ms, plain_ms) in times.items():
             keep = suffix == ("f64_f64" if name == "em_step" else "f32_f32")
             if keep:
-                record[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name])
+                bms, by = bounds[name]
+                record[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name],
+                                    bound_ms=bms, bound_by=by, library_ms=None)
         del inputs, L, counts
         torch.cuda.empty_cache()
     return record
@@ -600,7 +651,7 @@ def phase_cli(torch):
 def _community():
     """The synthetic community likelihood of bench.py:237-239 at the
     efaec-1 size (bench.py:360), not cut; and the seconds it took."""
-    from msweep_tpu.synth import make_community_likelihood
+    from msweep_tpu_torch.synth import make_community_likelihood
 
     t = time.perf_counter()
     lik = make_community_likelihood(E_FULL, G_FULL, seed=1, similarity=0.99, cluster_size=8,
@@ -623,6 +674,8 @@ def phase_full(torch, lik, build_s):
     counters = (K.rcg_norm_kernel, K.rcg_update_kernel, K.rcg_norm_plain, K.rcg_update_plain)
     for fn in counters:
         fn.launches = 0
+    for fn in counters[:2]:
+        fn.by_suffix = dict.fromkeys(fn.by_suffix, 0)
     buf = io.StringIO()
     t = time.perf_counter()
     with contextlib.redirect_stderr(buf):
@@ -630,6 +683,7 @@ def phase_full(torch, lik, build_s):
         theta32 = res.theta.cpu().numpy()
     fit_s = time.perf_counter() - t
     launches = {fn.__name__: fn.launches for fn in counters}
+    by_suffix = {fn.__name__: dict(fn.by_suffix) for fn in counters[:2]}
     peak = torch.cuda.max_memory_allocated()
 
     log = buf.getvalue()
@@ -642,6 +696,7 @@ def phase_full(torch, lik, build_s):
          f"{n_blind} blind float32 in {len(windows)} supervised windows, "
          f"{res.n_iters - n_f32 - n_blind} float64 polish), {res.n_iters / fit_s:.3f} it/s, "
          f"peak device memory {peak / 2**30:.3f} GiB, launches {launches}")
+    _say(f"  K1/K2 launches by instantiation (matrix_compute): {by_suffix}")
     if launches["rcg_norm_kernel"] == 0 or launches["rcg_update_kernel"] == 0:
         raise AssertionError(f"the main path did not launch both kernels: {launches}")
     if launches["rcg_norm_plain"] or launches["rcg_update_plain"]:
@@ -749,7 +804,7 @@ def phase_em(torch, lik):
 
 def phase_bootstrap(torch, lik):
     _say(f"== phase 7: bootstrap at E={E_FULL} G={G_FULL}, B=8, float32")
-    from msweep_tpu.core.sample import BootstrapResampler
+    from msweep_tpu_torch.core.sample import BootstrapResampler
     from msweep_tpu_torch.inference import bound_const, fit_rcg_batch, fit_rcg_result
     from msweep_tpu_torch.inference import pack_problem
     from msweep_tpu_torch.ops import rcg_batch_kernels as KB
@@ -857,12 +912,12 @@ def _golden_data():
 
 def _golden_lik():
     """The likelihood of tests/golden, built by the CLI's host code."""
-    from msweep_tpu.cli import build_parser
-    from msweep_tpu.core.alignment import collapse
-    from msweep_tpu.core.likelihood import build_likelihood
-    from msweep_tpu.io.compressed import read_input_bytes
-    from msweep_tpu.io.grouping import read_reference
-    from msweep_tpu.io.themisto import merge_strands, parse_plaintext_pairs
+    from msweep_tpu_torch.cli import build_parser
+    from msweep_tpu_torch.core.alignment import collapse
+    from msweep_tpu_torch.core.likelihood import build_likelihood
+    from msweep_tpu_torch.io.compressed import read_input_bytes
+    from msweep_tpu_torch.io.grouping import read_reference
+    from msweep_tpu_torch.io.themisto import merge_strands, parse_plaintext_pairs
 
     args = build_parser().parse_args(_golden_data())
     ref = read_reference(args.indicators)
@@ -912,7 +967,7 @@ def phase_shard(torch, lik, full):
     _say("== phase 10: EC-axis sharding on one card")
     import torch.distributed as dist
 
-    from msweep_tpu.core.sample import BootstrapResampler
+    from msweep_tpu_torch.core.sample import BootstrapResampler
     from msweep_tpu_torch.inference import fit_rcg_batch, fit_result, pack_problem
     from msweep_tpu_torch.ops import rcg_kernels as K
 
@@ -1055,8 +1110,10 @@ def main() -> int:
     launches.update(phase_prof(torch))
     phase_trace(torch)
     phase_shard(torch, lik, full)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loaded = sorted(m for m in set(sys.modules) - START_MODULES
+                    if m.split(".")[0] in ("jax", "jaxlib", "msweep_tpu"))
+    if loaded:
+        raise AssertionError(f"the run loaded JAX or the JAX package: {loaded[:10]}")
     _say(f"total {time.perf_counter() - t0:.1f} s")
 
     src = "msweep_tpu_torch/csrc/"

@@ -1,5 +1,5 @@
 """Command-line driver of the port: the mSWEEP-compatible CLI
-(counterpart of msweep_tpu/cli.py, whose flag surface it reuses): rcg and
+(counterpart of msweep_tpu/cli.py, whose flag surface it copies): rcg and
 EM fits, --iters bootstrap, --run-rate, --trace-dir, and EC-axis sharding
 over devices (--shards) and processes (--distributed-*).
 
@@ -24,6 +24,7 @@ torch.profiler trace of the fit.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import os
 import sys
@@ -32,12 +33,110 @@ import time
 import numpy as np
 import torch
 
-from msweep_tpu import __version__
-from msweep_tpu.cli import _manifest_samples, build_parser
-from msweep_tpu.log import Log
-
+from . import __version__
 from .device import resolve_device
+from .log import Log
 from .parallel import mesh
+
+
+CITATION = (
+    "Please cite us as:\n"
+    "\tMäklin T, Kallonen T, David S et al. High-resolution sweep\n"
+    "\tmetagenomics using fast probabilistic inference [version 2;\n"
+    "\tpeer review: 2 approved]. Wellcome Open Res 2021, 5:14\n"
+    "\t(https://doi.org/10.12688/wellcomeopenres.15639.2)"
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="msweep-tpu-torch",
+        description=(
+            "Estimate abundances of reference lineages in DNA sequencing reads "
+            "(mSWEEP on PyTorch and CUDA)."
+        ),
+    )
+    p.add_argument("--verbose", action="store_true", help="Print status messages to cerr.")
+    p.add_argument("--version", action="store_true", help="Print version.")
+    p.add_argument("--cite", action="store_true", help="Print citation information.")
+
+    g = p.add_argument_group("Pseudoalignment files (required: -1 and -2, or only -x; stdin if none)")
+    g.add_argument("--themisto-1", help="Pseudoalignments for the 1st strand of paired-end reads.")
+    g.add_argument("--themisto-2", help="Pseudoalignments for the 2nd strand of paired-end reads.")
+    g.add_argument(
+        "--themisto",
+        help="Single alignment file or comma-separated list of several files.",
+    )
+
+    p.add_argument("-i", dest="indicators", required=False, help="Group indicators for the pseudoalignment reference.")
+    p.add_argument("-o", dest="output", default="", help="Prefix for output files (default: print to cout).")
+
+    b = p.add_argument_group("Binning options")
+    b.add_argument("--bin-reads", action="store_true", help="Run the mGEMS binning algorithm.")
+    b.add_argument("--target-groups", help="Only extract these groups (comma separated list).")
+    b.add_argument("--min-abundance", type=float, default=None, help="Only extract groups with relative abundance higher than this.")
+
+    o = p.add_argument_group("Output options")
+    o.add_argument("--write-probs", action="store_true", help="Write read-to-group probabilities (_probs.tsv).")
+    o.add_argument("--print-probs", action="store_true", help="Print the probabilities to cout.")
+    o.add_argument("--write-likelihood", action="store_true", help="Write the likelihood matrix (_likelihoods.tsv).")
+    o.add_argument("--write-likelihood-bitseq", action="store_true", help="Write likelihoods in BitSeq-parseable format.")
+    o.add_argument("--compress", default="plaintext", help="Compress output files (z, bz2, lzma, zstd).")
+    o.add_argument("--compression-level", type=int, default=6, help="Compression level (0-9; default 6).")
+
+    ip = p.add_argument_group("Input options")
+    ip.add_argument("--themisto-mode", default="intersection", help="Paired-end merge mode (intersection, union, or unpaired).")
+    ip.add_argument("--read-likelihood", help="Path to a likelihood file written with --write-likelihood.")
+
+    e = p.add_argument_group("Estimation options")
+    e.add_argument("-t", dest="threads", type=int, default=1, help="Threads for host-side processing (device parallelism is automatic).")
+    e.add_argument("--no-fit-model", action="store_true", help="Only build (and optionally write) the likelihood matrix.")
+    e.add_argument("--max-iters", type=int, default=5000, help="Maximum optimizer iterations (default 5000).")
+    e.add_argument("--tol", type=float, default=1e-6, help="Optimization convergence tolerance (default 1e-6).")
+    e.add_argument("--algorithm", default="rcgcpu", help="rcggpu, emgpu, or rcgcpu (default rcgcpu; rcg* are the same program here).")
+    e.add_argument("--emprecision", default="double", choices=["float", "double"], help="Precision for the emgpu algorithm (default double).")
+
+    bs = p.add_argument_group("Bootstrapping options")
+    bs.add_argument("--iters", type=int, default=0, help="Number of bootstrap rerun iterations (default 0).")
+    bs.add_argument("--seed", type=int, default=26012023, help="Seed for the bootstrap RNG (default: random).")
+    bs.add_argument("--bootstrap-count", type=int, default=0, help="How many pseudoalignments to resample (default: number of reads).")
+
+    lk = p.add_argument_group("Likelihood options")
+    lk.add_argument("-q", dest="q", type=float, default=0.65, help="Mean for the beta-binomial component (default 0.65).")
+    lk.add_argument("-e", dest="e", type=float, default=0.01, help="Dispersion term for the beta-binomial component (default 0.01).")
+    lk.add_argument("--alphas", help="Prior counts for relative abundances, comma-separated (default all 1.0).")
+    lk.add_argument("--zero-inflation", type=float, default=0.01, help="Likelihood of an observation with 0 pseudoalignments against a group (default 0.01).")
+
+    x = p.add_argument_group("Experimental options")
+    x.add_argument("--run-rate", action="store_true", help="Calculate RATE/KLD reliability for each estimate.")
+    x.add_argument("--min-hits", type=int, default=0, help="Only consider groups with at least this many aligned reads (default 0).")
+    x.add_argument("--backend", default=None, help="(extension) device: cuda (default, also gpu) or cpu; a missing GPU is an error.")
+    x.add_argument("--precision", default=None, choices=["float", "double"], help="(extension) matrix dtype for any algorithm.")
+    x.add_argument("--shards", type=int, default=0, help="(extension) shard the EC axis over this many devices (0 = all available).")
+    x.add_argument("--write-checkpoint", help="(extension) save the built likelihood problem as a full-precision npz checkpoint.")
+    x.add_argument("--read-checkpoint", help="(extension) resume from an npz checkpoint, skipping alignment ingestion and likelihood build.")
+    x.add_argument("--trace-dir", help="(extension) write a torch.profiler trace of the estimation to this directory.")
+    x.add_argument(
+        "--samples-manifest",
+        help="(extension) batch mode: TSV of `output_prefix<TAB>aln1[<TAB>aln2]` "
+        "lines; processes every sample in one invocation, reusing the "
+        "reference and the built kernels across samples.",
+    )
+    x.add_argument(
+        "--no-precision-escalation", action="store_true",
+        help="(extension) stop rcg at the f32 numerical floor instead of "
+        "escalating to float64 past it (faster on ill-conditioned data; "
+        "abundances may differ from the double answer by ~1e-3).",
+    )
+    d = p.add_argument_group(
+        "Distributed options (extension; multi-host analog of the "
+        "reference's MPI build, docs/compilation.md:40-58 — estimation is "
+        "sharded across processes, process 0 does all I/O)"
+    )
+    d.add_argument("--distributed-coordinator", help="coordinator address host:port shared by all processes.")
+    d.add_argument("--distributed-nprocs", type=int, help="total number of processes in the job.")
+    d.add_argument("--distributed-process-id", type=int, help="this process's id (0-based; 0 = root).")
+    return p
 
 
 def _matrix_dtype(args, device: torch.device) -> torch.dtype:
@@ -53,17 +152,13 @@ def _matrix_dtype(args, device: torch.device) -> torch.dtype:
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    parser.prog = "msweep-tpu-torch"
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     log = Log(verbose=args.verbose)
     log(f"msweep-tpu-{__version__} abundance estimation")
 
     if args.version:
         print(f"msweep-tpu-{__version__}", file=sys.stderr)
     if args.cite:
-        from msweep_tpu.cli import CITATION
-
         print(CITATION, file=sys.stderr)
     if args.version or args.cite:
         return 0
@@ -121,18 +216,18 @@ def _setup_device(args) -> torch.device:
 
 
 def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> int:
-    from msweep_tpu.core import binning as binning_mod
-    from msweep_tpu.core.alignment import collapse
-    from msweep_tpu.core.likelihood import (
+    from .core import binning as binning_mod
+    from .core.alignment import collapse
+    from .core.likelihood import (
         build_likelihood,
         read_likelihood_msweep,
         write_likelihood_bitseq,
         write_likelihood_msweep,
     )
-    from msweep_tpu.core.sample import SEED_SENTINEL, BootstrapResampler, make_sample
-    from msweep_tpu.io.compressed import read_input_bytes
-    from msweep_tpu.io.grouping import read_reference
-    from msweep_tpu.io.outputs import (
+    from .core.sample import SEED_SENTINEL, BootstrapResampler, make_sample
+    from .io.compressed import read_input_bytes
+    from .io.grouping import read_reference
+    from .io.outputs import (
         OutfileDesignator,
         write_abundances,
         write_abundances_bootstrap,
@@ -140,9 +235,8 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
         write_bin,
         write_probs,
     )
-    from msweep_tpu.io.packed import looks_packed, parse_packed_pairs
-    from msweep_tpu.io.themisto import merge_strands, parse_plaintext_pairs
-
+    from .io.packed import looks_packed, parse_packed_pairs
+    from .io.themisto import merge_strands, parse_plaintext_pairs
     from .inference import (
         algorithm_family,
         dirichlet_kld_from_pseudocounts,
@@ -216,7 +310,7 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
 
             if args.read_checkpoint:
                 log("  reading likelihood checkpoint")
-                from msweep_tpu.io.checkpoint import load_checkpoint
+                from .io.checkpoint import load_checkpoint
 
                 lik, _ = load_checkpoint(args.read_checkpoint)
                 if lik.n_groups_total != grouping.n_groups:
@@ -246,7 +340,7 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
 
             if args.write_checkpoint:
                 log("  writing likelihood checkpoint")
-                from msweep_tpu.io.checkpoint import save_checkpoint
+                from .io.checkpoint import save_checkpoint
 
                 path = args.write_checkpoint
                 if n_groupings > 1:
@@ -452,6 +546,27 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
 
     log.flush()
     return 0
+
+
+def _manifest_samples(path: str) -> list[tuple[str, list[str]]]:
+    """Parse a --samples-manifest TSV: `output_prefix<TAB>aln1[<TAB>aln2]`
+    per line (blank lines and #-comments skipped)."""
+    rows: list[tuple[str, list[str]]] = []
+    with open(path) as f:
+        for ln_no, ln in enumerate(f, 1):
+            ln = ln.strip()
+            if not ln or ln.startswith("#"):
+                continue
+            parts = ln.split("\t")
+            if len(parts) not in (2, 3):
+                raise ValueError(
+                    f"samples manifest line {ln_no}: expected "
+                    f"prefix<TAB>aln1[<TAB>aln2], got {len(parts)} fields"
+                )
+            rows.append((parts[0], parts[1:]))
+    if not rows:
+        raise ValueError("samples manifest contains no samples")
+    return rows
 
 
 if __name__ == "__main__":

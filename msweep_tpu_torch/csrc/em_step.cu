@@ -12,7 +12,7 @@
 // per-row differences of nearly equal logsumexps, so the change stays
 // accurate near convergence.  lse is written in the compute type, the type
 // lse_prev is read in, so the differences are the ones the JAX step takes.
-// exp(t - lse) is taken as num / denom with num = exp(t - max), as K2 does.
+// exp(t - lse) is taken as num / denom with num = exp(t - max).
 //
 // Bound by memory in float32 (one read of logL, 4 B/cell) and by FP64 exp
 // in float64.  A CTA walks its contiguous rows in tiles of TILE_ROWS.
@@ -22,7 +22,7 @@
 // Phase B: threads own columns and walk the tile's rows in order, adding w
 // into the CTA's row of the (n_cta, G) float64 partials.  The TPU kernel
 // keeps its one exp sweep for w; here phase B recomputes exp(t - max) on
-// the tile re-read from L1/L2, two exps per cell in all, as K2 does.  No
+// the tile re-read from L1/L2, two exps per cell in all.  No
 // atomics: the second stage sums the partials in CTA order, so a rerun
 // gives the same bits.  Padding: NEG cells (and NEG + NEG = -2e8 where
 // theta = 0, finite in float32) get weight exactly 0; count-0 rows add 0.

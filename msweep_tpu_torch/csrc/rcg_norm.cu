@@ -7,41 +7,53 @@
 //
 //     sum_e sum_g counts_e * exp(gamma_eg) * s_eg^2
 //
-// with exp(gamma) taken as num / denom of the softmax, as the TPU kernel does.
+// with exp(gamma) taken as exp(ghat - m) * (cnt / denom): one division per
+// row, where the TPU kernel and the plain version divide num / denom per
+// cell.  That moves a cell's weight by an ulp or two, well inside the
+// rtol (1e-5 in float32, 1e-12 in float64) the kernel is held to.
 //
-// Bound by memory: one pass streams logL once, 4 B/cell in float32 (an
-// iteration is this pass plus K2, 8 B/cell).  One warp owns a row and walks
-// it three times (maxima, exp sums, weighted terms); the second and third
-// walks hit L1, so device memory sees the row once.  Left on the table for
-// later work: TMA bulk loads of row tiles into shared memory, holding the
-// row in registers so the third walk does not recompute exp(ghat - m), and
-// vectorised 16-byte loads.
+// Bound: one read of logL, 4 B/cell in float32 (an iteration is this pass
+// plus K2).  The arithmetic per cell is what holds it above that: two
+// correctly rounded exps (the floor and the escalation trigger need them)
+// and ~20 other operations, so in float32 it sits near the profiler's T3
+// (two exp sweeps), and in float64 compute it is bound by the FP64 exps.
+// The design does the least of that work: a warp holds its row in
+// registers (16 cells a lane for G <= 512, 16-byte loads), reads each cell
+// of logL once from memory, takes exp(t - m1) for lse(t) and exp(ghat - m)
+// for the softmax once each, keeps the latter in registers for the
+// w * s^2 term, and holds psi and v in registers across all the CTA's rows
+// (rcg_common.cuh norm_row).  Left for later work: TMA bulk loads and
+// prefetching the warp's next row while it computes this one.
 #include "rcg_common.cuh"
 
 namespace rcg {
 
 template <typename LT, typename CT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MinCtas<CT>::value)
 rcg_norm_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
                 const CT* __restrict__ psi, CT c, const CT* __restrict__ v, int64_t E,
-                int64_t G, int64_t rows_per_cta, double* __restrict__ part) {
+                int64_t G, bool vec, int64_t rows_per_cta, double* __restrict__ part) {
   __shared__ CT rowres[TILE_ROWS];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nch = (int)((G + CHUNK - 1) / CHUNK);
   int64_t lo, hi;
   cta_rows(E, rows_per_cta, lo, hi);
+  LT L[NPL];
+  CT pr[NPL], vr[NPL];
+  load_cols(psi, 0, G, lane, pr);
+  load_cols(v, 0, G, lane, vr);
   double acc = 0.0;  // read by thread 0 only
   for (int64_t t0 = lo; t0 < hi; t0 += TILE_ROWS) {
-    for (int k = 0; k < ROWS_PER_WARP; ++k) {
-      const int r = warp * ROWS_PER_WARP + k;
-      const int64_t e = t0 + r;
-      if (e < hi) {
-        const CT res = norm_row<LT, CT>(logL + e * G, G, (CT)counts[e], psi, c, v, lane);
-        if (lane == 0) rowres[r] = res;
-      }
+    const int nr = (int)((hi - t0 < TILE_ROWS) ? hi - t0 : TILE_ROWS);
+    for (int r = warp; r < nr; r += WARPS) {
+      const LT* row = logL + (t0 + r) * G;
+      load_row_chunk(row, 0, G, vec, lane, L);
+      const CT res = norm_row<LT, CT>(row, G, vec, nch, lane, (CT)counts[t0 + r], c, psi, v,
+                                      L, pr, vr);
+      if (lane == 0) rowres[r] = res;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-      const int64_t nr = (hi - t0 < TILE_ROWS) ? hi - t0 : TILE_ROWS;
       for (int r = 0; r < nr; ++r) acc += (double)rowres[r];
     }
     __syncthreads();
@@ -56,7 +68,7 @@ static int launch_norm(const void* logL, const void* counts, const void* psi, CT
   cudaStream_t s = (cudaStream_t)stream;
   rcg_norm_kernel<LT, CT><<<(unsigned)n_cta, THREADS, 0, s>>>(
       (const LT*)logL, (const LT*)counts, (const CT*)psi, c, (const CT*)v, E, G,
-      rows_per_cta, (double*)part);
+      vector_rows(logL, G), rows_per_cta, (double*)part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   rcg_reduce_scalar<<<1, 32, 0, s>>>((const double*)part, n_cta, (double*)out);

@@ -7,48 +7,55 @@
 // (rcg_norm.cu) returns for that replicate alone.
 //
 // Bound by compute once B is more than a few: logL is read from device
-// memory once per pass, and each replicate re-walks the row from L1.  A CTA
-// walks its contiguous rows in tiles of TILE_ROWS; inside a tile the
-// replicates go in chunks of RB, whose row terms wait in shared memory
-// until one thread per replicate adds them in row order into the CTA's
-// float64 partial.  That is the order in which K1 adds them, so with the
-// same grid replicate b gives the bits of K1 on column b.  Partials are
-// (n_cta, B) doubles, summed in CTA order by the second stage: no atomics.
-// c comes by device pointer, so a batched iteration needs no host sync.
-// The TPU kernel's replicate padding to 8, iota masks and SMEM scalar
-// tables have no counterpart: any B >= 1 is taken as it is.
+// memory once per pass, and every replicate does K1's two exps per cell.
+// A CTA walks its contiguous rows in tiles of TILE_ROWS; inside a tile the
+// replicates go in chunks of RB.  A warp loads its row into registers once
+// per chunk and runs K1's row function (rcg_common.cuh norm_row) for each
+// replicate of the chunk over those registers, with the replicate's psi
+// and v loaded from L1/L2.  The row terms wait in shared memory until one
+// thread per replicate adds them in row order into the CTA's float64
+// partial: the order in which K1 adds them, so with the same grid
+// replicate b gives the bits of K1 on column b.  Partials are (n_cta, B)
+// doubles, summed in CTA order by the second stage: no atomics.  c comes
+// by device pointer, so a batched iteration needs no host sync.  The TPU
+// kernel's replicate padding to 8, iota masks and SMEM scalar tables have
+// no counterpart: any B >= 1 is taken as it is.  Left for later work:
+// sharing the per-row setup across replicates.
 #include "rcg_common.cuh"
 
 namespace rcg {
 
 template <typename LT, typename CT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MinCtas<CT>::value)
 rcg_norm_batch_kernel(const LT* __restrict__ logL, const LT* __restrict__ countsT,
                       const CT* __restrict__ psi, const CT* __restrict__ c,
-                      const CT* __restrict__ v, int64_t E, int64_t G, int64_t B,
+                      const CT* __restrict__ v, int64_t E, int64_t G, int64_t B, bool vec,
                       int64_t rows_per_cta, double* __restrict__ part) {
   __shared__ CT rowres[TILE_ROWS * RB];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nch = (int)((G + CHUNK - 1) / CHUNK);
   int64_t lo, hi;
   cta_rows(E, rows_per_cta, lo, hi);
   double* __restrict__ acc = part + (int64_t)blockIdx.x * B;
   for (int64_t b = threadIdx.x; b < B; b += THREADS) acc[b] = 0.0;
   __syncthreads();
+  LT L[NPL];
+  CT pr[NPL], vr[NPL];
   for (int64_t t0 = lo; t0 < hi; t0 += TILE_ROWS) {
     const int nr = (int)((hi - t0 < TILE_ROWS) ? hi - t0 : TILE_ROWS);
     for (int64_t b0 = 0; b0 < B; b0 += RB) {
       const int nb = (int)((B - b0 < RB) ? B - b0 : RB);
-      for (int k = 0; k < ROWS_PER_WARP; ++k) {
-        const int r = warp * ROWS_PER_WARP + k;
+      for (int r = warp; r < nr; r += WARPS) {
         const int64_t e = t0 + r;
-        if (e < hi) {
-          const LT* row = logL + e * G;
-          for (int j = 0; j < nb; ++j) {
-            const int64_t b = b0 + j;
-            const CT res = norm_row<LT, CT>(row, G, (CT)countsT[e * B + b], psi + b * G, c[b],
-                                            v + b * G, lane);
-            if (lane == 0) rowres[r * RB + j] = res;
-          }
+        const LT* row = logL + e * G;
+        load_row_chunk(row, 0, G, vec, lane, L);
+        for (int j = 0; j < nb; ++j) {
+          const int64_t b = b0 + j;
+          load_cols(psi + b * G, 0, G, lane, pr);
+          load_cols(v + b * G, 0, G, lane, vr);
+          const CT res = norm_row<LT, CT>(row, G, vec, nch, lane, (CT)countsT[e * B + b], c[b],
+                                          psi + b * G, v + b * G, L, pr, vr);
+          if (lane == 0) rowres[r * RB + j] = res;
         }
       }
       __syncthreads();
@@ -70,7 +77,7 @@ static int launch_norm_batch(const void* logL, const void* countsT, const void* 
   cudaStream_t s = (cudaStream_t)stream;
   rcg_norm_batch_kernel<LT, CT><<<(unsigned)n_cta, THREADS, 0, s>>>(
       (const LT*)logL, (const LT*)countsT, (const CT*)psi, (const CT*)c, (const CT*)v, E, G,
-      B, rows_per_cta, (double*)part);
+      B, vector_rows(logL, G), rows_per_cta, (double*)part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // out[b] = sum over CTAs of part[cta, b], in CTA order.

@@ -4,80 +4,93 @@
 // _update_kernel, and its float64 twins msweep_tpu/ops/rcg_xla.py
 // rcg_update and rcg_bound_stats.  With gamma = masked row softmax of
 // c * logL + v and row(c, v) = sum_g w * (logL - gamma),
-// w = counts * exp(gamma) (taken as num / denom), it returns
+// w = counts * exp(gamma) (taken as exp(ghat - m) * (cnt / denom)), it
+// returns
 //
 //     colsum_g = sum_e w_eg at (c_new, v_new)                  (G,)
 //     scalar   = sum_e (row(c_new, v_new) - row(c_old, v_old))  delta mode
 //              = sum_e row(c_new, v_new)                        absolute mode
 //
 // The delta mode is the ELBO data-term change of one step, differenced per
-// row so that nearly equal row terms cancel before the cross-row sum.  The
-// absolute mode is the exact-bound pass of the escalation supervisor and the
-// implicit init at (c, v) = (0, 0).
+// row so that nearly equal row terms cancel before the cross-row sum.  Both
+// row terms come from one device function (rcg_common.cuh data_row) with one
+// reduction order, so the new term at (c, v) in one iteration rounds as the
+// old term at the same (c, v) in the next.  The absolute mode is the
+// exact-bound pass of the escalation supervisor and the implicit init at
+// (c, v) = (0, 0).  One division per row where the plain version divides
+// per cell; the rtol the kernel is held to (1e-5 / 1e-12) covers it.
 //
-// Bound by memory: one pass streams logL once, 4 B/cell in float32.  A CTA
-// walks its contiguous rows in tiles of TILE_ROWS.  Phase A: one warp per
-// row computes the row terms and keeps (max, denom, count) of the new
-// softmax in shared memory.  Phase B: threads own columns and walk the
-// tile's rows in order, adding w into the CTA's own row of the (n_cta, G)
-// double partials, so the column sum needs no atomics.  Phase B re-reads the
-// tile from L1/L2 and recomputes exp(ghat - m).  Left on the table for later
-// work: TMA tiles in shared memory shared by both phases, holding the row in
-// registers, vectorised loads, and skipping the old softmax's max walk.
+// Bound: one read of logL, 4 B/cell in float32.  The work per cell holds it
+// above that: two correctly rounded exps (the old and the new softmax) and
+// ~25 other operations, and in float64 compute the FP64 exps.  The design
+// does the least of that work.  A CTA walks its contiguous rows in tiles.
+// Phase A: a warp holds its row in registers (16 cells a lane for
+// G <= 512, 16-byte loads), so each cell of logL is read once from memory;
+// v_old and v_new stay in registers across all the CTA's rows; each
+// softmax takes one exp per cell, and the new one's weights w serve both
+// the row term and the column sums: phase A writes them into the tile's
+// rows in shared memory (as many rows as fit the CTAs an SM).  Phase B:
+// one thread per column adds the tile's w into the CTA's own row of the
+// (n_cta, G) double partials in row order, with no re-read of logL and no
+// second exp.  A row of weights too wide for shared memory (G beyond
+// 28,800) runs direct: one warp takes the CTA's rows in order and adds w
+// into the partials itself, the same adds in the same order, so the same
+// bits.  No atomics.  Left for later work: TMA bulk loads,
+// prefetching the next row, and holding the column partials in registers.
 #include "rcg_common.cuh"
 
 namespace rcg {
 
 template <typename LT, typename CT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MinCtas<CT>::value)
 rcg_update_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts, CT c_old,
                   const CT* __restrict__ v_old, CT c_new, const CT* __restrict__ v_new,
-                  int absolute, int64_t E, int64_t G, int64_t rows_per_cta,
-                  double* __restrict__ part_scalar, double* __restrict__ part_cols) {
-  __shared__ CT rowres[TILE_ROWS], rmax[TILE_ROWS], rden[TILE_ROWS], rcnt[TILE_ROWS];
+                  int absolute, int64_t E, int64_t G, bool vec, int64_t rows_per_cta,
+                  int tile, double* __restrict__ part_scalar, double* __restrict__ part_cols) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  CT* __restrict__ wt = reinterpret_cast<CT*>(smem);  // (tile, G) weights of the new softmax
+  __shared__ CT rowres[TILE_ROWS];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nch = (int)((G + CHUNK - 1) / CHUNK);
+  // tile 0: a row of weights does not fit shared memory, so warp 0 takes
+  // the rows one by one and adds its w straight into the column partials.
+  const bool direct = tile == 0;
+  const int step = direct ? 1 : tile;
   int64_t lo, hi;
   cta_rows(E, rows_per_cta, lo, hi);
   double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
   for (int64_t g = threadIdx.x; g < G; g += THREADS) cols[g] = 0.0;
+  __syncthreads();
+  LT L[NPL];
+  CT vn[NPL], vo[NPL];
+  load_cols(v_new, 0, G, lane, vn);
+  if (!absolute) load_cols(v_old, 0, G, lane, vo);
   double acc = 0.0;  // read by thread 0 only
-  for (int64_t t0 = lo; t0 < hi; t0 += TILE_ROWS) {
-    // Phase A: row terms, one warp per row.
-    for (int k = 0; k < ROWS_PER_WARP; ++k) {
-      const int r = warp * ROWS_PER_WARP + k;
-      const int64_t e = t0 + r;
-      if (e < hi) {
-        const LT* row = logL + e * G;
-        const CT cnt = (CT)counts[e];
-        CT m, den;
-        CT res = row_data_term<LT, CT>(row, G, cnt, c_new, v_new, lane, m, den);
-        if (!absolute) {
-          CT m_o, den_o;
-          res = res - row_data_term<LT, CT>(row, G, cnt, c_old, v_old, lane, m_o, den_o);
-        }
-        if (lane == 0) {
-          rowres[r] = res;
-          rmax[r] = m;
-          rden[r] = den;
-          rcnt[r] = cnt;
-        }
-      }
+  for (int64_t t0 = lo; t0 < hi; t0 += step) {
+    const int nr = (int)((hi - t0 < step) ? hi - t0 : step);
+    // Phase A: row terms and the tile's weights, one warp per row.
+    for (int r = warp; r < nr; r += WARPS) {
+      const LT* row = logL + (t0 + r) * G;
+      const CT cnt = (CT)counts[t0 + r];
+      load_row_chunk(row, 0, G, vec, lane, L);
+      CT res = data_row<LT, CT>(row, G, vec, nch, lane, cnt, c_new, v_new, L, vn,
+                                direct ? nullptr : wt + (int64_t)r * G, direct ? cols : nullptr);
+      if (!absolute)
+        res = res - data_row<LT, CT>(row, G, vec, nch, lane, cnt, c_old, v_old, L, vo, nullptr,
+                                     nullptr);
+      if (lane == 0) rowres[r] = res;
     }
     __syncthreads();
-    const int nr = (int)((hi - t0 < TILE_ROWS) ? hi - t0 : TILE_ROWS);
     if (threadIdx.x == 0) {
       for (int r = 0; r < nr; ++r) acc += (double)rowres[r];
     }
-    // Phase B: column partials of w at (c_new, v_new), rows in order.
-    for (int64_t g = threadIdx.x; g < G; g += THREADS) {
-      const CT vg = v_new[g];
-      double s = cols[g];
-      for (int r = 0; r < nr; ++r) {
-        const CT gh = ghat((CT)logL[(t0 + r) * G + g], c_new, vg);
-        const CT num = cexp(gh - rmax[r]);
-        s += (double)(rcnt[r] * (num / rden[r]));
+    // Phase B: column partials of the tile's w, rows in order.
+    if (!direct) {
+      for (int64_t g = threadIdx.x; g < G; g += THREADS) {
+        double s = cols[g];
+        for (int r = 0; r < nr; ++r) s += (double)wt[(int64_t)r * G + g];
+        cols[g] = s;
       }
-      cols[g] = s;
     }
     __syncthreads();
   }
@@ -91,11 +104,17 @@ static int launch_update(const void* logL, const void* counts, CT c_old, const v
                          void* part_cols, void* out_scalar, void* out_cols,
                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  rcg_update_kernel<LT, CT><<<(unsigned)n_cta, THREADS, 0, s>>>(
+  const int64_t row_bytes = (G > 0 ? G : 1) * (int64_t)sizeof(CT);
+  const int tile = wtile_rows<CT>(row_bytes);
+  const size_t smem = (size_t)tile * row_bytes;
+  cudaError_t err = cudaFuncSetAttribute(rcg_update_kernel<LT, CT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  rcg_update_kernel<LT, CT><<<(unsigned)n_cta, THREADS, smem, s>>>(
       (const LT*)logL, (const LT*)counts, c_old, (const CT*)v_old, c_new,
-      (const CT*)v_new, absolute, E, G, rows_per_cta, (double*)part_scalar,
-      (double*)part_cols);
-  cudaError_t err = cudaGetLastError();
+      (const CT*)v_new, absolute, E, G, vector_rows(logL, G), rows_per_cta, tile,
+      (double*)part_scalar, (double*)part_cols);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   rcg_reduce_scalar<<<1, 32, 0, s>>>((const double*)part_scalar, n_cta,
                                      (double*)out_scalar);
@@ -112,7 +131,7 @@ static int launch_update(const void* logL, const void* counts, CT c_old, const v
 // Plain C entry points, one per instantiation (matrix type _ compute type).
 // part_scalar is scratch of n_cta doubles, part_cols of n_cta * G doubles;
 // out_scalar is one double, out_cols G doubles; all on the device.  In
-// absolute mode v_old and c_old are not read.
+// absolute mode v_old and c_old are not read.  Returns a CUDA error.
 #define RCG_UPDATE_ENTRY(NAME, LT, CT)                                                   \
   extern "C" int NAME(const void* logL, const void* counts, CT c_old, const void* v_old, \
                       CT c_new, const void* v_new, int absolute, int64_t E, int64_t G,   \

@@ -35,7 +35,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from msweep_tpu.utils import NEG
+from ..utils import NEG
 
 from ..ops.em_kernels import em_step
 from .pack import DeviceProblem, auto_chunk

@@ -25,10 +25,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from msweep_tpu.core.likelihood import Likelihood
-from msweep_tpu.utils import PAD_THRESHOLD
-
+from ..core.likelihood import Likelihood
 from ..parallel.mesh import all_reduce_sum, process_group_up, rank_and_size
+from ..utils import PAD_THRESHOLD
 from .mixture import bound_const as _bound_const
 
 

@@ -19,18 +19,24 @@ Every public pass dispatches on the device of logL: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor launches the hand-written kernel
 (``msweep_tpu_torch/csrc``) or raises.  Each kernel wrapper and each plain
 version counts its launches in a ``launches`` attribute, so a run can show
-which one it went through.
+which one it went through; the kernel wrappers also count them by
+instantiation in ``by_suffix`` (e.g. ``{"f32_f32": 390, "f32_f64": 114, ...}``).
 
 Padding contract (as in the JAX package): cells with logL <= PAD_THRESHOLD
 keep logL itself, so their softmax weight is exactly 0, and rows with count
 0 contribute nothing.
+
+The plain versions keep the JAX package's arithmetic, num / denom per cell;
+the kernels take cnt / denom once per row, which moves a weight by an ulp
+or two, inside the rtol they are held to on the card (1e-5 in float32,
+1e-12 in float64; chip_smoke.py phase 3).
 """
 
 from __future__ import annotations
 
 import torch
 
-from msweep_tpu.utils import PAD_THRESHOLD
+from ..utils import PAD_THRESHOLD
 
 F64 = torch.float64
 
@@ -201,10 +207,12 @@ def rcg_norm_kernel(logL, counts, psi, c, v, *, compute_dtype):
         )
     _raise_on(rc, "rcg_norm")
     rcg_norm_kernel.launches += 1
+    rcg_norm_kernel.by_suffix[suffix] += 1
     return out[0]
 
 
 rcg_norm_kernel.launches = 0
+rcg_norm_kernel.by_suffix = dict.fromkeys(INSTANTIATIONS.values(), 0)
 
 
 def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype):
@@ -235,10 +243,12 @@ def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype
         )
     _raise_on(rc, "rcg_update")
     rcg_update_kernel.launches += 1
+    rcg_update_kernel.by_suffix[suffix] += 1
     return out_c, out_s[0]
 
 
 rcg_update_kernel.launches = 0
+rcg_update_kernel.by_suffix = dict.fromkeys(INSTANTIATIONS.values(), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,9 @@ comma-separated choice of rows (default all):
   full            implicit rcg iterations through inference/rcg._rcg_chunk,
                   including its two host syncs per iteration
 
-T1-T3 (ops/prof_kernels.py) differ from K1's and K2's rows only in the
-work done per cell, so their times against K1's and K2's say whether those
-kernels are bound by their loads or by their exps.  Each row reports ms,
+T1-T3 (ops/prof_kernels.py) read the matrix once and do zero, one or two
+exps per cell, so their times against K1's and K2's (which do two exps per
+cell) say how far those kernels are from a read with the same exps.  Each row reports ms,
 GB/s of the matrix (float32, `traffics` reads of it) and G cells/s, and is
 flagged INVALID when the rate is above the card's HBM roofline, which is
 known for the cards in ROOFLINE_GBPS; for another card the roofline is

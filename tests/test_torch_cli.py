@@ -69,7 +69,8 @@ def _imports(path):
 
 def test_package_imports_no_jax():
     """No module of the port imports jax, or the JAX package's device
-    layers (their package __init__ files import jax)."""
+    layers (their package __init__ files import jax); the stricter rule,
+    nothing of the JAX package at all, is tests/test_torch_host.py's."""
     banned = ("jax", "msweep_tpu.inference", "msweep_tpu.ops", "msweep_tpu.parallel")
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
     assert len(files) >= 10
@@ -209,9 +210,7 @@ def test_matrix_dtype_policy():
     """--precision wins; emgpu follows --emprecision on every device
     (float64 by default, also on CUDA); rcg runs float32 on CUDA and
     float64 on the CPU."""
-    from msweep_tpu.cli import build_parser
-
-    parse = build_parser().parse_args
+    parse = cli.build_parser().parse_args
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     f32, f64 = torch.float32, torch.float64
     cases = [

@@ -27,6 +27,7 @@ from msweep_tpu.utils import NEG
 from msweep_tpu_torch.inference import pack_problem, problem_from_numpy
 from msweep_tpu_torch.inference import rcg as R
 from msweep_tpu_torch.ops.rcg_kernels import materialize_gamma
+from msweep_tpu_torch.synth import make_community_likelihood as port_community_likelihood
 
 F32 = torch.float32
 
@@ -206,10 +207,11 @@ def test_escalation_on_community_matches_jax():
     tail reverts most of its steps where the port's reverts none.  At tol
     1e-8 theta is held to JAX's float64 fit (tests/test_synth.py's bar),
     and the float32 floor must really have been the problem."""
-    lik = make_community_likelihood(4096, 128, seed=2, similarity=0.99, cluster_size=8,
-                                    present_frac=0.1)
+    kw = dict(seed=2, similarity=0.99, cluster_size=8, present_frac=0.1)
+    lik = make_community_likelihood(4096, 128, **kw)
     j64 = jax_pack_problem(lik, dtype=jnp.float64)
-    p32 = pack_problem(lik, dtype=torch.float32, device="cpu")
+    p32 = pack_problem(port_community_likelihood(4096, 128, **kw), dtype=torch.float32,
+                       device="cpu")
 
     kw = dict(tol=1e-6, max_iters=3000)
     it_64 = int(jax_fit_rcg_result(j64, impl="xla64", **kw).n_iters)
@@ -234,11 +236,12 @@ def test_exact_refine_on_community_matches_jax(capsys):
     test_escalation_on_community_matches_jax's: at tol 1e-6 the iteration
     count in its band around JAX's float64 count, at tol 1e-8 theta within
     5e-6 of JAX's float64 fit."""
-    lik = make_community_likelihood(4096, 128, seed=2, similarity=0.99, cluster_size=8,
-                                    present_frac=0.1)
+    kw = dict(seed=2, similarity=0.99, cluster_size=8, present_frac=0.1)
+    lik = make_community_likelihood(4096, 128, **kw)
     j64 = jax_pack_problem(lik, dtype=jnp.float64)
     j32 = jax_pack_problem(lik, dtype=jnp.float32)
-    p32 = pack_problem(lik, dtype=torch.float32, device="cpu")
+    p32 = pack_problem(port_community_likelihood(4096, 128, **kw), dtype=torch.float32,
+                       device="cpu")
 
     kw = dict(tol=1e-6, max_iters=3000)
     it_64 = int(jax_fit_rcg_result(j64, impl="xla64", **kw).n_iters)

@@ -12,13 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from msweep_tpu.core.likelihood import Likelihood
-from msweep_tpu.core.sample import BootstrapResampler
+from msweep_tpu.core.likelihood import Likelihood as JaxLikelihood
 from msweep_tpu.inference import pack_problem as jax_pack_problem
 from msweep_tpu.inference.em import fit_em_result as jax_fit_em_result
 from msweep_tpu.inference.rcg import fit_rcg_result as jax_fit_rcg_result
 from msweep_tpu.parallel.mesh import make_ec_mesh
-from msweep_tpu.synth import make_community_likelihood
+from msweep_tpu_torch.core.likelihood import Likelihood
+from msweep_tpu_torch.core.sample import BootstrapResampler
+from msweep_tpu_torch.synth import make_community_likelihood
 from msweep_tpu_torch.inference import fit_em_batch, fit_em_result, fit_rcg_batch
 from msweep_tpu_torch.inference import fit_rcg_result, pack_problem
 from msweep_tpu_torch.parallel.mesh import ec_devices
@@ -26,12 +27,13 @@ from msweep_tpu_torch.parallel.mesh import ec_devices
 E_RAGGED = 203  # 2 * 101 + 1, 3 * 67 + 2, 4 * 50 + 3 rows
 
 
-def _lik(E=E_RAGGED, G=5, seed=0):
-    """tests/test_multichip.py's problem at a ragged E."""
+def _lik(E=E_RAGGED, G=5, seed=0, cls=Likelihood):
+    """tests/test_multichip.py's problem at a ragged E, as the port's
+    Likelihood (or, with cls, the JAX package's)."""
     rng = np.random.default_rng(seed)
     logL = np.log(rng.dirichlet(np.ones(G) * 0.5, size=E) + 1e-9)
     counts = rng.integers(1, 100, size=E)
-    return Likelihood(
+    return cls(
         n_ecs=E,
         n_groups_total=G,
         groups_mask=np.ones(G, bool),
@@ -59,8 +61,8 @@ def test_rcg_f64_shard_invariance(n):
     r1 = fit_rcg_result(pack_problem(lik), tol=1e-9)
     p = _sharded(lik, n)
     r2 = fit_rcg_result(p, tol=1e-9)
-    rj = jax_fit_rcg_result(jax_pack_problem(lik, mesh=make_ec_mesh(n)), impl="xla64",
-                            tol=1e-9)
+    rj = jax_fit_rcg_result(jax_pack_problem(_lik(cls=JaxLikelihood), mesh=make_ec_mesh(n)),
+                            impl="xla64", tol=1e-9)
     assert r2.n_iters == r1.n_iters == int(rj.n_iters)
     np.testing.assert_allclose(r2.objective, r1.objective, rtol=1e-12)
     np.testing.assert_allclose(r2.objective, float(rj.objective), rtol=1e-12)
@@ -78,7 +80,8 @@ def test_em_f64_shard_invariance(n):
     r1 = fit_em_result(pack_problem(lik), tol=1e-10)
     p = _sharded(lik, n)
     r2 = fit_em_result(p, tol=1e-10)
-    rj = jax_fit_em_result(jax_pack_problem(lik, mesh=make_ec_mesh(n)), tol=1e-10)
+    rj = jax_fit_em_result(jax_pack_problem(_lik(seed=3, cls=JaxLikelihood),
+                                            mesh=make_ec_mesh(n)), tol=1e-10)
     assert r2.n_iters == r1.n_iters == int(rj.n_iters)
     np.testing.assert_allclose(r2.objective, r1.objective, rtol=1e-12)
     np.testing.assert_allclose(r2.objective, float(rj.objective), rtol=1e-12)

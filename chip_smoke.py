@@ -9,7 +9,8 @@ Phases (each raises on failure, and the script exits non-zero):
 
 1. device: the card, its power limit, the torch / CUDA / nvcc versions;
 2. build: the K1-K5 and T1-T3 kernels from msweep_tpu_torch/csrc, one
-   nvcc per source in parallel;
+   nvcc per source in parallel; the instructions of one exp in float32
+   and float64, counted in SASS for the bounds of phase 3;
 3. kernels: every instantiation of K1, K2 (both modes), K3, K4 (both
    modes, B in 1, 3, 8, 13), K5 and T1-T3 against its plain PyTorch
    version on the card, on inputs drawn from a seed, at ragged and wide
@@ -18,7 +19,8 @@ Phases (each raises on failure, and the script exits non-zero):
    bits of K1/K2 on its own column; then kernel and plain times at 2,301,952 x 512
    (K3/K4 at B = 8), each beside its bound (the larger of the bytes it
    must move at 3.35 TB/s and its operations at the data sheet's peak) and
-   the share of the bound it reaches;
+   the share of the bound it reaches, T1 and T2 also beside torch.sum and
+   torch.logsumexp over the rows of the same matrix;
 4. the CLI on tests/golden through msweep_tpu_torch.cli.main on the card:
    rcg in float32 with escalation and --precision double against the golden
    files; emgpu (float64 and --emprecision float), --iters 4 --seed 7
@@ -84,16 +86,23 @@ SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
 # device memory at 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64
-# outside the tensor cores.  Operations per cell of the algorithm, each
-# add, multiply, compare and exp counted as one (an exp is more on these
-# units, so the operations bound is a floor): K1 20 (t, ghat, two maxes,
-# two exps and sums, s, w, w s^2), K2 25 (two softmaxes with their row
-# terms, the column add), K3/K4 those per replicate, K5 7, T1 1, T2 4,
-# T3 8.
+# outside the tensor cores, rates that count a fused multiply-add as two
+# operations.  The kernels are built with -fmad=false, so each add,
+# multiply, compare or select is one instruction, issued at half those
+# rates.  Operations per cell that the algorithm needs besides its exps:
+# K1 18 (t, ghat, two maxes and exp sums, s, w, w s^2), K2 23 (two
+# softmaxes with their row terms, the column add), K3/K4 those per
+# replicate, K5 6, T1 1, T2 3, T3 6.  Exps per cell: K1 2 (lse(t) and the
+# softmax), K2 2 (the old and the new softmax), K5 1, T1 0, T2 1, T3 2,
+# each counted as the instructions of one exp on its compute type's pipe,
+# counted in this run's SASS (msweep_tpu_torch/exp_cost.py).  Other pipes
+# (MUFU, integer) are not counted, so the operations bound is a floor.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {4: 67e12, 8: 34e12}  # by the compute type's size in bytes
-OPS_PER_CELL = {"rcg_norm": 20, "rcg_update": 25, "rcg_norm_batch": 20, "rcg_update_batch": 25,
-                "em_step": 7, "prof_read": 1, "prof_exp": 4, "prof_exp2": 8}
+PEAK_INSTR_PER_S = {4: 67e12 / 2, 8: 34e12 / 2}  # by the compute type's size in bytes
+OPS_PER_CELL = {"rcg_norm": 18, "rcg_update": 23, "rcg_norm_batch": 18, "rcg_update_batch": 23,
+                "em_step": 6, "prof_read": 1, "prof_exp": 3, "prof_exp2": 6}
+EXPS_PER_CELL = {"rcg_norm": 2, "rcg_update": 2, "rcg_norm_batch": 2, "rcg_update_batch": 2,
+                 "em_step": 1, "prof_read": 0, "prof_exp": 1, "prof_exp2": 2}
 
 
 def _say(msg: str) -> None:
@@ -314,11 +323,12 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(name, E, G, lsize, csize, B=1):
+def bound_ms(name, E, G, lsize, csize, exp_instr, B=1):
     """(least ms, "bytes" or "operations") of one call of kernel `name` on
     an (E, G) matrix of `lsize`-byte cells computed in `csize`-byte
     floats, B replicates: each input read once and each output written
-    once at HBM_BYTES_PER_S, against OPS_PER_CELL at the peak rate."""
+    once at HBM_BYTES_PER_S, against OPS_PER_CELL plus EXPS_PER_CELL
+    times `exp_instr[csize]` (instructions of one exp) at the peak rate."""
     cells = E * G
     moved = {
         "rcg_norm": cells * lsize + E * lsize + 2 * G * csize + 8,
@@ -329,7 +339,8 @@ def bound_ms(name, E, G, lsize, csize, B=1):
         "em_step": cells * lsize + E * lsize + 2 * E * csize + G * csize + (G + 1) * 8,
     }.get(name, cells * 4 + 4 + E * 4)  # T1-T3: x, s, the (E,) output
     t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = OPS_PER_CELL[name] * cells * B / PEAK_OPS_PER_S[csize]
+    ops = OPS_PER_CELL[name] + EXPS_PER_CELL[name] * exp_instr[csize]
+    t_ops = ops * cells * B / PEAK_INSTR_PER_S[csize]
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
@@ -377,13 +388,22 @@ def phase_build():
     _say("== phase 2: build")
     from msweep_tpu_torch.ops import _build
 
+    from msweep_tpu_torch import exp_cost
+
     path, seconds = _build.build(verbose=True)
     _build.load()
     _say(f"build: {seconds:.3f} s (one nvcc per source in parallel, then a link; K1-K5, "
          f"T1-T3) -> {os.path.relpath(path, REPO)}")
+    pipes = exp_cost.measure()
+    exp_instr = {4: pipes["float32"]["fp32"], 8: pipes["float64"]["fp64"]}
+    _say(f"one exp in SASS (msweep_tpu_torch/exp_cost.py), instructions by pipe: {pipes}; "
+         f"the bounds count {exp_instr[4]} float32 / {exp_instr[8]} float64 instructions")
+    if not (exp_instr[4] > 0 and exp_instr[8] > 0):
+        raise AssertionError(f"no floating-point instruction counted in an exp: {pipes}")
+    return exp_instr
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, exp_instr):
     _say("== phase 3: kernels against their plain versions on the card")
     from msweep_tpu_torch.ops import em_kernels as KE
     from msweep_tpu_torch.ops import prof_kernels as KP
@@ -435,7 +455,8 @@ def phase_kernels(torch):
             ),
         }
         csize = torch.empty((), dtype=cd).element_size()
-        bounds = {name: bound_ms(name, E, G, L.element_size(), csize, 8 if "batch" in name else 1)
+        bounds = {name: bound_ms(name, E, G, L.element_size(), csize, exp_instr,
+                                 8 if "batch" in name else 1)
                   for name in OPS_PER_CELL}
         for name, (ms, plain_ms) in times.items():
             gb = L.numel() * L.element_size() / 1e9
@@ -464,29 +485,34 @@ def phase_kernels(torch):
                                                                   c_new, v_new), 2),
             )
             del em_in, b_in, countsT
+        library = {}
         if ld == cd == torch.float32:
             serr, s = _check_sweeps(torch, KP, L, 9, f"E={E} G={G}")
             errs.update(serr)
             for name in SWEEPS:
                 times[name] = (_time_ms(torch, lambda: getattr(KP, f"{name}_kernel")(L, s), 10),
                                _time_ms(torch, lambda: getattr(KP, f"{name}_plain")(L, s), 3))
+            # One PyTorch call computes T1 and T2 on the same matrix, up to
+            # the fold s * 1e-30 (below an ulp of every cell).  No single
+            # call computes T3 or any K row.
+            library = {"prof_read": _time_ms(torch, lambda: torch.sum(L, 1), 10),
+                       "prof_exp": _time_ms(torch, lambda: torch.logsumexp(L, 1), 10)}
         for name, (ms, plain_ms) in times.items():
             if name in ("em_step", "rcg_norm_batch", "rcg_update_batch") + SWEEPS:
                 b = " (B=8)" if "batch" in name else ""
                 bms, by = bounds[name]
+                lib = f", one call {library[name]:.4f} ms" if name in library else ""
                 _say(f"  {name}{b} {suffix}: kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-                     f"share of bound {bms / ms:.3f}, plain {plain_ms:.4f} ms, "
+                     f"share of bound {bms / ms:.3f}, plain {plain_ms:.4f} ms{lib}, "
                      f"max abs err {errs[name]:.3e}")
         # The kernels' JSON record: the float32 passes of the rcg paths
         # (default run and bootstrap), and K5 in float64, the emgpu default.
-        # No single PyTorch call computes any of these functions, so none
-        # has a library time.
         for name, (ms, plain_ms) in times.items():
             keep = suffix == ("f64_f64" if name == "em_step" else "f32_f32")
             if keep:
                 bms, by = bounds[name]
                 record[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name],
-                                    bound_ms=bms, bound_by=by, library_ms=None)
+                                    bound_ms=bms, bound_by=by, library_ms=library.get(name))
         del inputs, L, counts
         torch.cuda.empty_cache()
     return record
@@ -1100,8 +1126,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     smi = phase_device(torch)
-    phase_build()
-    record = phase_kernels(torch)
+    exp_instr = phase_build()
+    record = phase_kernels(torch, exp_instr)
     phase_cli(torch)
     lik, build_s = _community()
     launches, full = phase_full(torch, lik, build_s)

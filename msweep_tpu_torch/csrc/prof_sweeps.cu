@@ -7,18 +7,16 @@
 //   T2 prof_exp   (_exp_kernel):   out[e] = lse_g(x[e,g] + s * 1e-30)
 //   T3 prof_exp2  (_exp2_kernel):  out[e] = lse_g(x + s * 1e-30) + lse_g(0.5 x + 2 s)
 //
-// They exist to measure the layout of K5 (and of K1/K2 before those held
-// their rows in registers): one warp per row, 32-wide strides over G, a
+// They keep K5's layout: one warp per row, 32-wide strides over G, a
 // fixed grid of a few CTAs per SM over contiguous whole tiles of rows.  T1
 // reads each cell once and adds it, T2 walks the row twice (max, then exp
 // and sum; the second walk hits L1), T3 does T2's walks for two
-// logsumexps at once.  So T1 is the read ceiling of the layout (bound by
+// logsumexps at once.  So T1 is the read rate of the layout (bound by
 // memory: 4 B/cell), and T2/T3 add one and two exps per cell; set against
 // K1, K2 and K5 (two exps per cell each) they say how far those are from
-// a read with the same exps.  Measured at 2,301,952 x 512 (NVIDIA H100
-// 80GB HBM3, 700 W power limit; 32 registers, no spills): T1 1.91 ms,
-// 2.47 TB/s or 74% of the HBM peak, the ceiling of this layout; T2 2.12
-// ms; T3 2.54 ms (chip_smoke.py phase 3; PERF.md has K1/K2 beside them).
+// a read with the same exps.  chip_smoke.py phase 3 times each beside its
+// bound and beside torch.sum / torch.logsumexp over the rows of the same
+// matrix (T1 / T2 up to the fold); PERF.md keeps the numbers.
 // The fold s * 1e-30 is inside the kernel so that each rep depends on the
 // previous rep's out[0] (tools/prof_kernels.py: 139-143).  Each writes
 // its own (E,) output: no atomics, no partials.

@@ -33,7 +33,7 @@
 // one thread per column adds the tile's w into the CTA's own row of the
 // (n_cta, G) double partials in row order, with no re-read of logL and no
 // second exp.  A row of weights too wide for shared memory (G beyond
-// 28,800) runs direct: one warp takes the CTA's rows in order and adds w
+// about 29,000 on an H100) runs direct: one warp takes the CTA's rows in order and adds w
 // into the partials itself, the same adds in the same order, so the same
 // bits.  No atomics.  Left for later work: TMA bulk loads,
 // prefetching the next row, and holding the column partials in registers.
@@ -104,12 +104,13 @@ static int launch_update(const void* logL, const void* counts, CT c_old, const v
                          void* part_cols, void* out_scalar, void* out_cols,
                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t row_bytes = (G > 0 ? G : 1) * (int64_t)sizeof(CT);
-  const int tile = wtile_rows<CT>(row_bytes);
-  const size_t smem = (size_t)tile * row_bytes;
-  cudaError_t err = cudaFuncSetAttribute(rcg_update_kernel<LT, CT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static WtileBudget cache;
+  int64_t budget = 0;
+  cudaError_t err = wtile_budget<CT>((const void*)rcg_update_kernel<LT, CT>, cache, budget);
   if (err != cudaSuccess) return (int)err;
+  const int64_t row_bytes = (G > 0 ? G : 1) * (int64_t)sizeof(CT);
+  const int tile = wtile_rows(budget, row_bytes);
+  const size_t smem = (size_t)tile * row_bytes;
   rcg_update_kernel<LT, CT><<<(unsigned)n_cta, THREADS, smem, s>>>(
       (const LT*)logL, (const LT*)counts, c_old, (const CT*)v_old, c_new,
       (const CT*)v_new, absolute, E, G, vector_rows(logL, G), rows_per_cta, tile,

@@ -111,19 +111,21 @@ static int launch_update_batch(const void* logL, const void* countsT, const void
                                void* part_cols, void* out_scalar, void* out_cols,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  static WtileBudget cache;
+  int64_t budget = 0;
+  cudaError_t err =
+      wtile_budget<CT>((const void*)rcg_update_batch_kernel<LT, CT>, cache, budget);
+  if (err != cudaSuccess) return (int)err;
   // The replicate chunk (RB, 4, 2 or 1) whose tile of weights keeps the
   // most warps busy in phase A (one row each), the widest on a tie; with
   // no tile that fits, RB replicates run direct.
   const int64_t row_bytes = (G > 0 ? G : 1) * (int64_t)sizeof(CT);
   int rb = RB, tile = 0;
   for (int r = RB; r >= 1; r /= 2) {
-    const int t = wtile_rows<CT>(r * row_bytes);
+    const int t = wtile_rows(budget, r * row_bytes);
     if ((t < WARPS ? t : WARPS) > (tile < WARPS ? tile : WARPS)) rb = r, tile = t;
   }
   const size_t smem = (size_t)rb * tile * row_bytes;
-  cudaError_t err = cudaFuncSetAttribute(rcg_update_batch_kernel<LT, CT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   rcg_update_batch_kernel<LT, CT><<<(unsigned)n_cta, THREADS, smem, s>>>(
       (const LT*)logL, (const LT*)countsT, (const CT*)c_old, (const CT*)v_old,
       (const CT*)c_new, (const CT*)v_new, absolute, E, G, B, vector_rows(logL, G), rows_per_cta,

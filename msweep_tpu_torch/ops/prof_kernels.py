@@ -10,10 +10,10 @@ float32 value per row (msweep_tpu_torch/csrc/prof_sweeps.cu):
 
 They replace tools/prof_kernels.py _read_kernel, _exp_kernel and
 _exp2_kernel, and keep K5's layout (one warp per row in 32-wide strides,
-a fixed grid of CTAS_PER_SM CTAs per SM, as K1/K2 had before they held
-their rows in registers), so that their times against K1's, K2's and K5's
-say how far those are from a read with one or two exps per cell.  Passing a rep's out[:1] as
-the next rep's s chains the reps through the device.
+a fixed grid of CTAS_PER_SM CTAs per SM), so that their times against
+K1's, K2's and K5's say how far those are from a read with one or two exps
+per cell.  Passing a rep's out[:1] as the next rep's s chains the reps
+through the device.
 
 Dispatch as in ops/rcg_kernels.py: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises.  Both count their launches in

@@ -127,6 +127,37 @@ def test_roofline_flag(capsys):
     assert "INVALID" in capsys.readouterr().out
 
 
+SASS = """
+\tcode for sm_90a
+\t\tFunction : exp_f64
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+                                                               /* 0x000fe40000000800 */
+        /*0010*/                   S2R R6, SR_TID.X ;          /* 0x0000000000067919 */
+        /*0020*/                   DFMA R4, R2, UR4, R4 ;      /* 0x0000000402047c2b */
+        /*0030*/              @!P0 DADD R4, R2, R2 ;           /* 0x0000000002048229 */
+        /*0040*/                   DSETP.GEU.AND P0, PT, |R2|, 708, PT ;
+        /*0050*/                   FSETP.GEU.AND P0, PT, |R3|, 4.2275390625, PT ;
+        /*0060*/                   EXIT ;
+\t\tFunction : exp_f32
+        /*0000*/                   FFMA.SAT R0, R2, R3, 0.5 ;
+        /*0010*/                   MUFU.EX2 R5, R5 ;
+        /*0020*/               @P0 FMUL R5, R0, R5 ;
+        /*0030*/                   F2F.F64.F32 R6, R5 ;
+        /*0040*/                   BRA 0x40;
+"""
+
+
+def test_exp_cost_counts_sass_by_pipe():
+    """exp_cost.count reads cuobjdump -sass output: one tally per function,
+    predicated and modified opcodes by their pipe, encodings skipped."""
+    from msweep_tpu_torch import exp_cost
+
+    got = exp_cost.count(SASS)
+    assert got["exp_f64"] == dict(fp32=1, fp64=3, mufu=0, convert=0, other=3)
+    assert got["exp_f32"] == dict(fp32=2, fp64=0, mufu=1, convert=1, other=1)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -20,7 +20,9 @@ Phases (each raises on failure, and the script exits non-zero):
    (K3/K4 at B = 8), each beside its bound (the larger of the bytes it
    must move at 3.35 TB/s and its operations at the data sheet's peak) and
    the share of the bound it reaches, T1 and T2 also beside torch.sum and
-   torch.logsumexp over the rows of the same matrix;
+   torch.logsumexp over the rows of the same matrix; K5's registers,
+   spills, tile rows and columns and CTAs an SM in both types; T1's ratio to
+   torch.sum;
 4. the CLI on tests/golden through msweep_tpu_torch.cli.main on the card:
    rcg in float32 with escalation and --precision double against the golden
    files; emgpu (float64 and --emprecision float), --iters 4 --seed 7
@@ -32,8 +34,9 @@ Phases (each raises on failure, and the script exits non-zero):
    against a float64 fit of the same problem; K1/K2 launches by
    instantiation;
 6. EM on the same community with the emgpu default policy (float64
-   matrix, tol 1e-6), then 20 iterations through K5 and through the plain
-   version from the same init, in float64 and float32;
+   matrix, tol 1e-6), K5's time a pass beside the iteration's, then 20
+   iterations through K5 and through the plain version from the same init,
+   in float64 and float32 (the --emprecision float path's launches);
 7. bootstrap on the same community: B = 8 replicates drawn with the
    BootstrapResampler, fit_rcg_batch in float32 on K3/K4, replicates 0 and
    7 held against serial K1/K2 fits of the same counts;
@@ -485,6 +488,12 @@ def phase_kernels(torch, exp_instr):
                                                                   c_new, v_new), 2),
             )
             del em_in, b_in, countsT
+        if ld == cd:
+            info = KE.kernel_info(suffix, G, torch.cuda.current_device())
+            _say(f"  em_step {suffix} at G={G}: {info['registers']} registers, "
+                 f"{info['spill_bytes']} local (spilled) bytes a thread, tile of "
+                 f"{info['tile_rows']} rows x {info['tile_cols']} columns, "
+                 f"{info['ctas_per_sm']} CTAs an SM")
         library = {}
         if ld == cd == torch.float32:
             serr, s = _check_sweeps(torch, KP, L, 9, f"E={E} G={G}")
@@ -497,6 +506,10 @@ def phase_kernels(torch, exp_instr):
             # call computes T3 or any K row.
             library = {"prof_read": _time_ms(torch, lambda: torch.sum(L, 1), 10),
                        "prof_exp": _time_ms(torch, lambda: torch.logsumexp(L, 1), 10)}
+            t1_ms, sum_ms = times["prof_read"][0], library["prof_read"]
+            gb = L.numel() * L.element_size() / 1e9
+            _say(f"  prof_read {t1_ms:.4f} ms ({gb / t1_ms:.3f} TB/s), {t1_ms / sum_ms:.4f} x "
+                 f"torch.sum ({sum_ms:.4f} ms, {gb / sum_ms:.3f} TB/s)")
         for name, (ms, plain_ms) in times.items():
             if name in ("em_step", "rcg_norm_batch", "rcg_update_batch") + SWEEPS:
                 b = " (B=8)" if "batch" in name else ""
@@ -506,13 +519,14 @@ def phase_kernels(torch, exp_instr):
                      f"share of bound {bms / ms:.3f}, plain {plain_ms:.4f} ms{lib}, "
                      f"max abs err {errs[name]:.3e}")
         # The kernels' JSON record: the float32 passes of the rcg paths
-        # (default run and bootstrap), and K5 in float64, the emgpu default.
+        # (default run and bootstrap), and K5 in float64, the emgpu default,
+        # and in float32 (--emprecision float).
         for name, (ms, plain_ms) in times.items():
-            keep = suffix == ("f64_f64" if name == "em_step" else "f32_f32")
-            if keep:
+            key = "em_step_f32" if (name, suffix) == ("em_step", "f32_f32") else name
+            if key == "em_step_f32" or suffix == ("f64_f64" if name == "em_step" else "f32_f32"):
                 bms, by = bounds[name]
-                record[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name],
-                                    bound_ms=bms, bound_by=by, library_ms=library.get(name))
+                record[key] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name],
+                                   bound_ms=bms, bound_by=by, library_ms=library.get(name))
         del inputs, L, counts
         torch.cuda.empty_cache()
     return record
@@ -808,21 +822,35 @@ def phase_em(torch, lik):
         raise AssertionError(f"EM did not run on K5 alone: {launches}")
     if theta.shape != (G_FULL,) or not np.isfinite(theta).all() or abs(theta.sum() - 1) > 1e-9:
         raise AssertionError(f"EM theta is not a distribution: sum {theta.sum()!r}")
+    L, counts = p64.shards[0]
+    em_in = _em_inputs(torch, L, counts, 7)
+    k5_ms = _time_ms(torch, lambda: KE.em_step_kernel(L, *em_in), 10)
+    it_ms = fit_s * 1e3 / res.n_iters
+    _say(f"  K5 float64 {k5_ms:.4f} ms a pass (CUDA events) against {it_ms:.4f} ms an EM "
+         f"iteration (host clock over the fit): {it_ms - k5_ms:.4f} ms of host and small ops")
+    del em_in
     _busy_share(torch, lambda: fit_result(p64, "emgpu", tol=-1.0, max_iters=32),
                 "32 float64 EM iterations")
 
     for p, bar in ((p64, 1e-10), (None, 1e-5)):
         if p is None:
-            del p64
+            del p64, L, counts
             torch.cuda.empty_cache()
             p = pack_problem(lik, dtype=torch.float32, device=dev)
+        for fn in counters:
+            fn.launches = 0
         th_k = _em_fixed(torch, E_, KE, p, 20, plain=False)
+        if p.logL.dtype == torch.float32:  # the --emprecision float path, driven for 20 iterations
+            launches["em_step_f32"] = KE.em_step_kernel.launches
+            if launches["em_step_f32"] == 0 or KE.em_step_plain.launches:
+                raise AssertionError("20 float32 EM iterations did not run on K5 alone")
         th_p = _em_fixed(torch, E_, KE, p, 20, plain=True)
         gap = float((th_k - th_p).abs().max())
         _say(f"  20 iterations {p.logL.dtype}: max |theta_K5 - theta_plain| {gap:.3e} "
              f"(bar {bar})")
         if not gap <= bar:
             raise AssertionError(f"EM through K5 is {gap} from the plain version")
+    _say(f"  launches {launches}")
     del p
     torch.cuda.empty_cache()
     return launches
@@ -1151,6 +1179,7 @@ def main() -> int:
         ("rcg_update_batch", "rcg_update_batch.cu", "msweep_tpu/ops/rcg_pallas.py:423",
          "rcg_update_batch_kernel"),
         ("em_step", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_kernel"),
+        ("em_step_f32", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_f32"),
         ("prof_read", "prof_sweeps.cu", "tools/prof_kernels.py:118", "prof_read"),
         ("prof_exp", "prof_sweeps.cu", "tools/prof_kernels.py:178", "prof_exp"),
         ("prof_exp2", "prof_sweeps.cu", "tools/prof_kernels.py:185", "prof_exp2"),

@@ -12,81 +12,185 @@
 // per-row differences of nearly equal logsumexps, so the change stays
 // accurate near convergence.  lse is written in the compute type, the type
 // lse_prev is read in, so the differences are the ones the JAX step takes.
-// exp(t - lse) is taken as num / denom with num = exp(t - max).
+// counts * exp(t - lse) is taken as exp(t - max) * (counts / denom), one
+// division per row, as the TPU kernel takes (c / s) * e.
 //
-// Bound by memory in float32 (one read of logL, 4 B/cell) and by FP64 exp
-// in float64.  A CTA walks its contiguous rows in tiles of TILE_ROWS.
-// Phase A: one warp per row finds the row max and exp sum, writes lse and
-// keeps (max, denom, count) in shared memory; the row's ddot term waits
-// there too and is added into the CTA's float64 partial in row order.
-// Phase B: threads own columns and walk the tile's rows in order, adding w
-// into the CTA's row of the (n_cta, G) float64 partials.  The TPU kernel
-// keeps its one exp sweep for w; here phase B recomputes exp(t - max) on
-// the tile re-read from L1/L2, two exps per cell in all.  No
-// atomics: the second stage sums the partials in CTA order, so a rerun
+// Bound: one read of logL (4 or 8 B/cell) in both types.  The work per
+// cell is one exp and ~6 other operations; in float64 the exp is 18 FP64
+// instructions (msweep_tpu_torch/exp_cost.py), which puts the operations
+// bound (~1.7 ms at 2,301,952 x 512) below the bytes bound (2.83 ms): the
+// FP64 exp chain's latency and the registers it takes are what the design
+// must hide.  The design is K2's: a CTA walks its contiguous rows in tiles.
+// Rows of one chunk (G <= 512) run an instantiation compiled for one chunk
+// at three CTAs an SM, in float64 too, so that one CTA's exps overlap the
+// others' loads and phase B.  Phase A: a warp holds its row in registers
+// (16 cells a lane, 16-byte loads), so each cell of logL is read once from
+// memory; one exp per cell gives the row's max, exp sum and lse
+// (rcg_common.cuh em_row_stats), and the kept exps times cnt / denom are
+// the weights w, written into the tile's rows in shared memory; the row's
+// ddot term waits in shared memory and is added into the CTA's float64
+// partial in row order.  Phase B: one thread per column adds the tile's w
+// into its columns of the CTA's partials in row order, with no re-read of
+// logL and no second exp; a thread keeps its two columns in registers
+// across the tiles and writes them once at the end.  Three CTAs leave 85
+// registers a thread, so logtheta is read from L1 for each row rather
+// than held in registers, and the float64 exps skip CUDA's slow path
+// below -746, where exp is 0 (rcg_common.cuh uexp).
+// Wider rows run the general instantiation at two CTAs an SM, on tiles of
+// at least 8 rows, one a warp, whatever G: phase A merges a row's chunks
+// into its max and exp sum; then, a slab of columns at a time (as many
+// chunks as 8 rows of weights fit in the CTA's shared memory: 1,536
+// columns in float64, 3,584 in float32 on an H100), each warp reads its
+// row's chunks in the slab again and takes w with a second exp
+// (em_chunk_w) into the slab's tile, and phase B adds the slab's columns
+// in row order.  So a wide row costs two reads and two exps per cell, and
+// no warp idles for want of shared memory.  The weights, and the order of
+// the adds into each column, do not depend on the tile or the slab.
+// No atomics: the second stage sums the partials in CTA order, so a rerun
 // gives the same bits.  Padding: NEG cells (and NEG + NEG = -2e8 where
 // theta = 0, finite in float32) get weight exactly 0; count-0 rows add 0.
+// Left for later work: prefetching the warp's next row, and one read of
+// logL for B bootstrap replicates.
 #include "rcg_common.cuh"
 
 namespace rcg {
 
-template <typename LT, typename CT>
-__global__ void __launch_bounds__(THREADS)
+// CTAs an SM: three for rows of one chunk (at most 85 registers a thread,
+// so that one CTA's FP64 exps overlap the others' phase B and loads), two
+// for wider rows, whose second pass needs more registers.
+template <bool ONE_CHUNK>
+constexpr int EM_CTAS = ONE_CHUNK ? 3 : 2;
+
+// ONE_CHUNK: G <= CHUNK, so the row functions are compiled for one chunk.
+// A tile is `tile` rows of `slab` columns of weights in shared memory: the
+// whole row for one chunk, a slab of whole chunks for the general build.
+template <typename LT, typename CT, bool ONE_CHUNK>
+__global__ void __launch_bounds__(THREADS, EM_CTAS<ONE_CHUNK>)
 em_step_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
                const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta, int64_t E,
-               int64_t G, int64_t rows_per_cta, CT* __restrict__ lse_out,
-               double* __restrict__ part_scalar, double* __restrict__ part_cols) {
-  __shared__ CT rowres[TILE_ROWS], rmax[TILE_ROWS], rden[TILE_ROWS], rcnt[TILE_ROWS];
+               int64_t G, bool vec, int64_t rows_per_cta, int tile, int64_t slab,
+               CT* __restrict__ lse_out, double* __restrict__ part_scalar,
+               double* __restrict__ part_cols) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  CT* __restrict__ wt = reinterpret_cast<CT*>(smem);  // (tile, slab) weights
+  __shared__ CT rowres[TILE_ROWS], rmax[TILE_ROWS], rcrow[TILE_ROWS];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nch = ONE_CHUNK ? 1 : (int)((G + CHUNK - 1) / CHUNK);
   int64_t lo, hi;
   cta_rows(E, rows_per_cta, lo, hi);
   double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
   for (int64_t g = threadIdx.x; g < G; g += THREADS) cols[g] = 0.0;
+  __syncthreads();
+  LT L[NPL];
+  CT w[NPL];
   double acc = 0.0;  // read by thread 0 only
-  for (int64_t t0 = lo; t0 < hi; t0 += TILE_ROWS) {
-    // Phase A: row logsumexp, one warp per row.
-    for (int k = 0; k < ROWS_PER_WARP; ++k) {
-      const int r = warp * ROWS_PER_WARP + k;
+  // One chunk: a thread's columns (at most CHUNK / THREADS) of the CTA's
+  // partials stay in registers across tiles, written out at the end.
+  constexpr int NCOL = CHUNK / THREADS;
+  double cacc[NCOL];
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) cacc[j] = 0.0;
+  for (int64_t t0 = lo; t0 < hi; t0 += tile) {
+    const int nr = (int)((hi - t0 < tile) ? hi - t0 : tile);
+    // Phase A: lse, the ddot term and (max, cnt / denom) of each row, one
+    // warp per row; for one chunk also the tile's weights.
+    for (int r = warp; r < nr; r += WARPS) {
       const int64_t e = t0 + r;
-      if (e < hi) {
-        const LT* row = logL + e * G;
-        CT mx = neg_inf<CT>();
-#pragma unroll 4
-        for (int64_t g = lane; g < G; g += 32) mx = cmax(mx, (CT)row[g] + logtheta[g]);
-        mx = warp_max(mx);
-        CT s = 0;
-#pragma unroll 4
-        for (int64_t g = lane; g < G; g += 32) s += cexp(((CT)row[g] + logtheta[g]) - mx);
-        s = warp_sum(s);
-        if (lane == 0) {
-          const CT lse = mx + clog(s);
-          const CT cnt = (CT)counts[e];
-          lse_out[e] = lse;
-          rowres[r] = cnt * (lse - lse_prev[e]);
-          rmax[r] = mx;
-          rden[r] = s;
-          rcnt[r] = cnt;
-        }
+      const LT* row = logL + e * G;
+      const CT cnt = (CT)counts[e];
+      CT m, den;
+      load_row_chunk(row, 0, G, vec, lane, L);
+      em_row_stats<LT, CT>(row, G, vec, nch, lane, logtheta, L, m, den, w);
+      const CT crow = cnt / den, lse = m + clog(den);
+      if (ONE_CHUNK) {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) w[i] = w[i] * crow;
+        store_row_chunk(wt + (int64_t)r * G, 0, G, lane, w);
+      }
+      if (lane == 0) {
+        lse_out[e] = lse;
+        rowres[r] = cnt * (lse - lse_prev[e]);
+        rmax[r] = m;
+        rcrow[r] = crow;
       }
     }
     __syncthreads();
-    const int nr = (int)((hi - t0 < TILE_ROWS) ? hi - t0 : TILE_ROWS);
     if (threadIdx.x == 0) {
       for (int r = 0; r < nr; ++r) acc += (double)rowres[r];
     }
-    // Phase B: column partials of w = cnt * exp(t - max) / denom, rows in order.
-    for (int64_t g = threadIdx.x; g < G; g += THREADS) {
-      const CT lt = logtheta[g];
-      double s = cols[g];
+    if (ONE_CHUNK) {
+      // Phase B: column partials of the tile's w, rows in order.
       for (int r = 0; r < nr; ++r) {
-        const CT num = cexp(((CT)logL[(t0 + r) * G + g] + lt) - rmax[r]);
-        s += (double)(rcnt[r] * (num / rden[r]));
+#pragma unroll
+        for (int j = 0; j < NCOL; ++j) {
+          const int64_t g = threadIdx.x + j * THREADS;
+          if (g < G) cacc[j] += (double)wt[(int64_t)r * G + g];
+        }
       }
-      cols[g] = s;
+      __syncthreads();
+    } else {
+      // A slab of columns at a time: the tile's w on the slab's chunks, one
+      // warp per row, then phase B on the slab's columns, rows in order.
+      for (int64_t s0 = 0; s0 < G; s0 += slab) {
+        const int64_t sw = (G - s0 < slab) ? G - s0 : slab;
+        for (int r = warp; r < nr; r += WARPS) {
+          const LT* row = logL + (t0 + r) * G;
+          for (int64_t c0 = s0; c0 < s0 + sw; c0 += CHUNK) {
+            em_chunk_w<LT, CT>(row, c0, G, vec, lane, logtheta, rmax[r], rcrow[r], w);
+            store_row_chunk(wt + (int64_t)r * slab, c0 - s0, sw, lane, w);
+          }
+        }
+        __syncthreads();
+        for (int64_t g = threadIdx.x; g < sw; g += THREADS) {
+          double s = cols[s0 + g];
+          for (int r = 0; r < nr; ++r) s += (double)wt[(int64_t)r * slab + g];
+          cols[s0 + g] = s;
+        }
+        __syncthreads();
+      }
     }
-    __syncthreads();
+  }
+  if (ONE_CHUNK) {
+#pragma unroll
+    for (int j = 0; j < NCOL; ++j) {
+      const int64_t g = threadIdx.x + j * THREADS;
+      if (g < G) cols[g] = cacc[j];
+    }
   }
   if (threadIdx.x == 0) part_scalar[blockIdx.x] = acc;
+}
+
+// The instantiation for G columns, its tile of weights (from its
+// shared-memory budget, read from the runtime once per device) and the
+// dynamic shared memory that takes.  The general build's slab is the row's
+// chunks, at most as many as WARPS rows of weights fit in the budget.
+template <typename LT, typename CT, bool ONE_CHUNK>
+static cudaError_t em_plan_one(int64_t G, const void*& kernel, int& tile, int64_t& slab,
+                               size_t& smem) {
+  static WtileBudget cache;
+  int64_t budget = 0;
+  kernel = (const void*)em_step_kernel<LT, CT, ONE_CHUNK>;
+  cudaError_t err = wtile_budget(kernel, EM_CTAS<ONE_CHUNK>, cache, budget);
+  if (ONE_CHUNK) {
+    slab = G > 0 ? G : 1;
+  } else {
+    const int64_t nch = (G + CHUNK - 1) / CHUNK;
+    const int64_t fit = budget / ((int64_t)WARPS * CHUNK * (int64_t)sizeof(CT));
+    slab = (nch < fit ? nch : fit) * CHUNK;
+  }
+  const int64_t row_bytes = slab * (int64_t)sizeof(CT);
+  tile = row_bytes > 0 ? wtile_rows(budget, row_bytes) : 0;
+  smem = (size_t)tile * row_bytes;
+  // No tile of weights fits (not so on an H100).
+  if (err == cudaSuccess && tile == 0) err = cudaErrorInvalidConfiguration;
+  return err;
+}
+
+template <typename LT, typename CT>
+static cudaError_t em_plan(int64_t G, const void*& kernel, int& tile, int64_t& slab,
+                           size_t& smem) {
+  return G <= CHUNK ? em_plan_one<LT, CT, true>(G, kernel, tile, slab, smem)
+                    : em_plan_one<LT, CT, false>(G, kernel, tile, slab, smem);
 }
 
 template <typename LT, typename CT>
@@ -95,10 +199,16 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
                           int64_t n_cta, void* lse_out, void* part_scalar, void* part_cols,
                           void* out_scalar, void* out_cols, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  em_step_kernel<LT, CT><<<(unsigned)n_cta, THREADS, 0, s>>>(
-      (const LT*)logL, (const LT*)counts, (const CT*)lse_prev, (const CT*)logtheta, E, G,
-      rows_per_cta, (CT*)lse_out, (double*)part_scalar, (double*)part_cols);
-  cudaError_t err = cudaGetLastError();
+  const void* kernel = nullptr;
+  int tile = 0;
+  int64_t slab = 0;
+  size_t smem = 0;
+  cudaError_t err = em_plan<LT, CT>(G, kernel, tile, slab, smem);
+  if (err != cudaSuccess) return (int)err;
+  bool vec = vector_rows(logL, G);
+  void* args[] = {&logL, &counts, &lse_prev, &logtheta, &E, &G, &vec, &rows_per_cta,
+                  &tile, &slab, &lse_out, &part_scalar, &part_cols};
+  err = cudaLaunchKernel(kernel, dim3((unsigned)n_cta), dim3(THREADS), args, smem, s);
   if (err != cudaSuccess) return (int)err;
   rcg_reduce_scalar<<<1, 32, 0, s>>>((const double*)part_scalar, n_cta, (double*)out_scalar);
   err = cudaGetLastError();
@@ -109,13 +219,38 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
   return (int)cudaGetLastError();
 }
 
+// out = {registers a thread, local (spilled) bytes a thread, rows and
+// columns of the tile of weights at G columns, CTAs resident an SM at that
+// tile}, for the instantiation that G columns run, on the current device.
+template <typename LT, typename CT>
+static int info_em_step(int64_t G, int* out) {
+  const void* kernel = nullptr;
+  int tile = 0;
+  int64_t slab = 0;
+  size_t smem = 0;
+  cudaError_t err = em_plan<LT, CT>(G, kernel, tile, slab, smem);
+  cudaFuncAttributes attr;
+  int ctas = 0;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = tile;
+  out[3] = (int)slab;
+  out[4] = ctas;
+  return 0;
+}
+
 }  // namespace rcg
 
 // Plain C entry points, one per instantiation (matrix type _ compute type).
 // counts is (E,) in the matrix type; lse_prev, lse_out (E,) and logtheta
 // (G,) in the compute type.  part_scalar is scratch of n_cta doubles,
 // part_cols of n_cta * G; out_scalar is one double (ddot), out_cols G
-// doubles (colsum); all on the device.
+// doubles (colsum); all on the device.  em_step_info_* fills five ints
+// (rcg::info_em_step).  Both return a CUDA error.
 #define EM_STEP_ENTRY(NAME, LT, CT)                                                          \
   extern "C" int NAME(const void* logL, const void* counts, const void* lse_prev,            \
                       const void* logtheta, int64_t E, int64_t G, int64_t rows_per_cta,      \
@@ -124,7 +259,8 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
     return rcg::launch_em_step<LT, CT>(logL, counts, lse_prev, logtheta, E, G, rows_per_cta, \
                                        n_cta, lse_out, part_scalar, part_cols, out_scalar,   \
                                        out_cols, stream);                                    \
-  }
+  }                                                                                          \
+  extern "C" int NAME##_info(int64_t G, int* out) { return rcg::info_em_step<LT, CT>(G, out); }
 
 EM_STEP_ENTRY(em_step_f32_f32, float, float)
 EM_STEP_ENTRY(em_step_f64_f64, double, double)

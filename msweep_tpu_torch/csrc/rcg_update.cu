@@ -106,7 +106,8 @@ static int launch_update(const void* logL, const void* counts, CT c_old, const v
   cudaStream_t s = (cudaStream_t)stream;
   static WtileBudget cache;
   int64_t budget = 0;
-  cudaError_t err = wtile_budget<CT>((const void*)rcg_update_kernel<LT, CT>, cache, budget);
+  cudaError_t err = wtile_budget((const void*)rcg_update_kernel<LT, CT>, MinCtas<CT>::value,
+                                 cache, budget);
   if (err != cudaSuccess) return (int)err;
   const int64_t row_bytes = (G > 0 ? G : 1) * (int64_t)sizeof(CT);
   const int tile = wtile_rows(budget, row_bytes);

@@ -113,8 +113,8 @@ static int launch_update_batch(const void* logL, const void* countsT, const void
   cudaStream_t s = (cudaStream_t)stream;
   static WtileBudget cache;
   int64_t budget = 0;
-  cudaError_t err =
-      wtile_budget<CT>((const void*)rcg_update_batch_kernel<LT, CT>, cache, budget);
+  cudaError_t err = wtile_budget((const void*)rcg_update_batch_kernel<LT, CT>,
+                                 MinCtas<CT>::value, cache, budget);
   if (err != cudaSuccess) return (int)err;
   // The replicate chunk (RB, 4, 2 or 1) whose tile of weights keeps the
   // most warps busy in phase A (one row each), the widest on a tie; with

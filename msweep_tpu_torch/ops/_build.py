@@ -117,6 +117,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # part_scalar, part_cols, out_scalar, out_cols, stream
         sig(f"em_step_{suffix}", _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P,
             _P)
+        # G, out (5 ints)
+        sig(f"em_step_{suffix}_info", _I64, _P)
     for name in ("prof_read", "prof_exp", "prof_exp2"):
         # x, s, E, G, rows_per_cta, n_cta, out, stream
         sig(f"{name}_f32", _P, _P, _I64, _I64, _I64, _I64, _P, _P)

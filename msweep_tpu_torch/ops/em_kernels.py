@@ -10,10 +10,11 @@ returns
 - ddot: sum_e counts_e * (lse_e - lse_prev_e), the deferred change of the
   objective's data term (msweep_tpu/inference/em.py _make_step).
 
-exp(t - lse) is taken as num / denom with num = exp(t - max), and row
-terms are computed in logL's dtype (float32 for --emprecision float,
-float64 by default); colsum and ddot are summed across rows in float64 and
-returned as float64.
+counts * exp(t - lse) is taken as (counts / denom) * num with num =
+exp(t - max), one division per row, as the TPU kernel takes it
+(msweep_tpu/ops/em_pallas.py:47); row terms are computed in logL's dtype
+(float32 for --emprecision float, float64 by default); colsum and ddot are
+summed across rows in float64 and returned as float64.
 
 Dispatch on logL's device as in ops/rcg_kernels.py: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel
@@ -22,6 +23,9 @@ in ``launches``.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -50,7 +54,7 @@ def em_step_plain(logL, counts, lse_prev, logtheta):
         row_lse = (m + torch.log(denom))[:, 0]
         cnt = counts[lo:lo + rows].to(dt)
         lse[lo:lo + rows] = row_lse
-        colsum = colsum + (cnt[:, None] * (num / denom)).to(F64).sum(dim=0)
+        colsum = colsum + ((cnt[:, None] / denom) * num).to(F64).sum(dim=0)
         ddot = ddot + (cnt * (row_lse - lse_prev[lo:lo + rows].to(dt))).to(F64).sum()
     return lse, colsum, ddot
 
@@ -73,14 +77,35 @@ def _check_inputs(logL, counts, lse_prev, logtheta):
             lse_prev.to(logL.dtype).contiguous(), logtheta.to(logL.dtype).contiguous())
 
 
+@functools.cache
+def kernel_info(suffix: str, G: int, device_index: int) -> dict:
+    """K5's build and launch at G columns on a card: registers and local
+    (spilled) bytes a thread, rows and columns of its tile of weights and
+    CTAs resident an SM, from the runtime (em_step.cu info_em_step)."""
+    from ._build import load
+
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device_index):
+        rc = getattr(load(), f"em_step_{suffix}_info")(G, out)
+    _raise_on(rc, "em_step_info")
+    info = dict(zip(("registers", "spill_bytes", "tile_rows", "tile_cols",
+                         "ctas_per_sm"), out))
+    if info["ctas_per_sm"] < 1:
+        raise RuntimeError(f"em_step_{suffix} cannot run at G={G}: {info}")
+    return info
+
+
 def em_step_kernel(logL, counts, lse_prev, logtheta):
-    """K5 on the card (msweep_tpu_torch/csrc/em_step.cu)."""
+    """K5 on the card (msweep_tpu_torch/csrc/em_step.cu), on a grid of as
+    many CTAs as the card holds at once."""
     from ._build import load
 
     suffix, counts, lse_prev, logtheta = _check_inputs(logL, counts, lse_prev, logtheta)
     E, G = logL.shape
     dev = logL.device
-    rows_per_cta, n_cta = _grid(E, dev)
+    ctas = kernel_info(suffix, G, dev.index if dev.index is not None else
+                       torch.cuda.current_device())["ctas_per_sm"]
+    rows_per_cta, n_cta = _grid(E, dev, ctas_per_sm=ctas)
     lse = torch.empty((E,), dtype=logL.dtype, device=dev)
     part_s = torch.empty((n_cta,), dtype=F64, device=dev)
     part_c = torch.empty((n_cta, G), dtype=F64, device=dev)

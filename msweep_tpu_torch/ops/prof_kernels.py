@@ -9,11 +9,11 @@ float32 value per row (msweep_tpu_torch/csrc/prof_sweeps.cu):
 - T3 ``prof_exp2``: T2 plus logsumexp_g (0.5 x + 2 s), two exp sweeps.
 
 They replace tools/prof_kernels.py _read_kernel, _exp_kernel and
-_exp2_kernel, and keep K5's layout (one warp per row in 32-wide strides,
-a fixed grid of CTAS_PER_SM CTAs per SM), so that their times against
-K1's, K2's and K5's say how far those are from a read with one or two exps
-per cell.  Passing a rep's out[:1] as the next rep's s chains the reps
-through the device.
+_exp2_kernel.  T1 reads the way K1, K2 and K5 read (16 cells a lane in
+16-byte loads, one chunk of 512 columns in flight a warp), and so reads
+at the card's rate; T2/T3 walk a row with one warp in 32-wide strides.
+All three run on a fixed grid of CTAS_PER_SM CTAs per SM.  Passing a
+rep's out[:1] as the next rep's s chains the reps through the device.
 
 Dispatch as in ops/rcg_kernels.py: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises.  Both count their launches in

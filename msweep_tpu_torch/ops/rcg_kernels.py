@@ -154,16 +154,17 @@ rcg_update_plain.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _grid(E: int, device: torch.device, max_cta: int | None = None) -> tuple[int, int]:
-    """(rows_per_cta, n_cta): a fixed grid of a few CTAs per SM (at most
-    `max_cta`), each walking a contiguous range of whole tiles (the tile
-    size is the kernels' own, read from the library)."""
+def _grid(E: int, device: torch.device, max_cta: int | None = None,
+          ctas_per_sm: int = CTAS_PER_SM) -> tuple[int, int]:
+    """(rows_per_cta, n_cta): a fixed grid of `ctas_per_sm` CTAs per SM
+    (at most `max_cta`), each walking a contiguous range of whole tiles
+    (the tile size is the kernels' own, read from the library)."""
     from ._build import tile_rows
 
     tile = tile_rows()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = max(1, -(-E // tile))
-    n = min(sms * CTAS_PER_SM, tiles, max_cta or tiles)
+    n = min(sms * ctas_per_sm, tiles, max_cta or tiles)
     rows_per_cta = -(-tiles // n) * tile
     return rows_per_cta, max(1, -(-E // rows_per_cta))
 

@@ -51,6 +51,8 @@ def _step_inputs(logL, counts, seed):
     G = logL.shape[1]
     theta = rng.dirichlet(np.ones(G))
     theta[rng.random(G) < 0.2] = 0.0
+    if not theta.any():  # a one-column problem keeps its one group
+        theta[0] = 1.0
     theta /= theta.sum()
     logtheta = np.where(theta > 0, np.log(np.maximum(theta, 1e-300)), NEG).astype(logL.dtype)
     t = logL.astype(np.float64) + logtheta
@@ -65,9 +67,11 @@ def _t(x, dtype=None):
 
 @pytest.mark.parametrize("E,G,seed,padded", [
     (64, 384, 0, False), (128, 256, 5, False), (512, 128, 11, False), (56, 200, 13, True),
+    (64, 640, 17, False), (56, 1152, 19, True),
 ])
 def test_em_step_plain_matches_pallas(E, G, seed, padded):
-    """Plain K5 against the Pallas kernel in interpret mode, float32.  The
+    """Plain K5 against the Pallas kernel in interpret mode, float32, at
+    rows narrower and wider than the CUDA kernel's 512-column chunk.  The
     Pallas kernel sums its partials in float32 across the grid, the port in
     float64, so lse and colsum agree to float32 round-off (rtol 1e-5) and
     ddot to 1e-5 of sum_e |c_e lse_e|, the scale of its terms."""
@@ -88,12 +92,16 @@ def test_em_step_plain_matches_pallas(E, G, seed, padded):
         assert (colsum[G:] == 0).all()
 
 
-def test_em_step_plain_f64_matches_jnp_estep():
+@pytest.mark.parametrize("E,G,seed", [(96, 256, 21), (50, 33, 22), (40, 600, 23),
+                                      (24, 1100, 24)])
+def test_em_step_plain_f64_matches_jnp_estep(E, G, seed):
     """Float64 K5 (the emgpu default on CUDA) against the JAX package's
-    float64 E-step (impl="xla"), to float64 round-off (1e-12)."""
-    logL, counts, _, _ = _problem(96, 256, 21)
+    float64 E-step (impl="xla"), to float64 round-off (1e-12), at widths
+    the Pallas grid would not take and with theta zero on some groups."""
+    logL, counts, _, _ = _problem(E, G, seed)
     logL, counts = logL.astype(np.float64), counts.astype(np.float64)
-    lse_prev, logtheta = _step_inputs(logL, counts, 21)
+    lse_prev, logtheta = _step_inputs(logL, counts, seed)
+    assert (logtheta == NEG).any()
     t, lse_w = jem._estep(jnp.asarray(logL), jnp.exp(jnp.asarray(logtheta)), jnp.float64)
     colsum_w = jem._colsum_acc(jnp.asarray(counts)[:, None] * jnp.exp(t - lse_w[:, None]))
     ddot_w = jem._acc_dot(jnp.asarray(counts), lse_w - jnp.asarray(lse_prev))
@@ -227,12 +235,21 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("E,G,padded", [
+    (4091, 300, True),  # tile mode, a ragged padded problem
+    (37, 33, False), (1, 1, False),
+    (4099, 1152, False), (777, 5000, False),  # rows of several 512-column chunks
+    (53, 1537, False),  # a ragged last slab, scalar loads
+    (9, 30_000, False),  # rows of many slabs
+])
 @pytest.mark.parametrize("dtype", list(K.INSTANTIATIONS))
-def test_cuda_em_kernel_matches_plain(cuda_device, dtype):
+def test_cuda_em_kernel_matches_plain(cuda_device, dtype, E, G, padded):
     """Each instantiation of K5 against its plain version on the card, on
-    a padded ragged problem; a rerun gives the same bits."""
-    logL, counts, alpha, _ = _problem(4091, 300, 37)
-    logL, counts, alpha = _pad(logL, counts, alpha)
+    rows of one chunk, of several and of several slabs of weights; a rerun
+    gives the same bits."""
+    logL, counts, alpha, _ = _problem(E, G, 37)
+    if padded:
+        logL, counts, alpha = _pad(logL, counts, alpha)
     lse_prev, logtheta = _step_inputs(logL, counts, 37)
     args = [_t(x, dtype).to(cuda_device) for x in (logL, counts, lse_prev, logtheta)]
     rtol = 1e-5 if dtype == torch.float32 else 1e-12

@@ -24,7 +24,7 @@ from msweep_tpu_torch import prof_kernels as P
 from msweep_tpu_torch.ops import prof_kernels as KP
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = [(64, 32), (37, 33), (129, 512), (5, 1000)]
+SHAPES = [(64, 32), (37, 33), (129, 512), (5, 1000), (33, 1), (40, 4096)]
 
 
 @pytest.fixture(scope="module")
@@ -166,11 +166,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,G", SHAPES + [(1_000_003, 4), (4_099, 4096)])
+@pytest.mark.parametrize("E,G", SHAPES + [(100_003, 1), (1_000_003, 4), (65_537, 512),
+                                          (4_099, 4096)])
 def test_sweep_kernels_match_plain(cuda_device, E, G):
     """T1-T3 on the card against their plain versions on the same tensors
-    (rtol 1e-5 with 1e-5 absolute: float32 sums in another order), and a
-    rerun gives the same bits."""
+    (rtol 1e-5 with 1e-5 absolute: float32 sums in another order), at E
+    not a multiple of the tile; a rerun gives the same bits."""
     x, s = _inputs(E, G, 7)
     x, s = torch.from_numpy(x).to(cuda_device), torch.tensor([s], device=cuda_device)
     for n in ("read", "exp", "exp2"):

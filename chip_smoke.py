@@ -11,23 +11,27 @@ Phases (each raises on failure, and the script exits non-zero):
 2. build: the K1-K5 and T1-T3 kernels from msweep_tpu_torch/csrc, one
    nvcc per source in parallel; the instructions of one exp in float32
    and float64, counted in SASS for the bounds of phase 3;
-3. kernels: every instantiation of K1, K2 (both modes), K3, K4 (both
-   modes, B in 1, 3, 8, 13), K5 and T1-T3 against its plain PyTorch
-   version on the card, on inputs drawn from a seed, at ragged and wide
-   shapes (G in 1, 4, 33, 512, 4096, 5000, 30000) and a JAX-style padded
-   problem; a rerun must give the same bits, and each K3/K4 replicate the
-   bits of K1/K2 on its own column; then kernel and plain times at 2,301,952 x 512
-   (K3/K4 at B = 8), each beside its bound (the larger of the bytes it
-   must move at 3.35 TB/s and its operations at the data sheet's peak) and
-   the share of the bound it reaches, T1 and T2 also beside torch.sum and
-   torch.logsumexp over the rows of the same matrix; K5's registers,
-   spills, tile rows and columns and CTAs an SM in both types; T1's ratio to
-   torch.sum;
+3. kernels: every instantiation of K1, K2 (both modes), K3 (norms and
+   row terms), K4 (delta against K3's row terms, and absolute; B in 1, 3,
+   8, 13), K5 and T1-T3 against its plain PyTorch version on the card, on
+   inputs drawn from a seed, at ragged and wide shapes (G in 1, 4, 33,
+   512, 4096, 5000, 30000) and a JAX-style padded problem; a rerun must
+   give the same bits, each K3/K4 replicate the bits of K1/K2 on its own
+   column (K4's delta K2's at the old and the new state), and a done mask
+   must zero its replicates and leave the others' bits; then kernel and
+   plain times at 2,301,952 x 512 (K3/K4 at B = 8), each beside its bound
+   (the larger of the bytes it must move at 3.35 TB/s and its operations
+   at the data sheet's peak) and the share of the bound it reaches, T1 and
+   T2 also beside torch.sum and torch.logsumexp over the rows of the same
+   matrix; K3/K4's and K5's registers, spills, tiles and CTAs an SM in
+   both types; T1's ratio to torch.sum;
 4. the CLI on tests/golden through msweep_tpu_torch.cli.main on the card:
    rcg in float32 with escalation and --precision double against the golden
    files; emgpu (float64 and --emprecision float), --iters 4 --seed 7
    (rcgcpu and emgpu) and --run-rate against the same command run on the
-   CPU (--backend cpu, the plain versions);
+   CPU (--backend cpu, the plain versions); --min-hits 100000 (every group
+   masked), alone and with --iters 2 --write-probs, file for file against
+   the CPU;
 5. the main path at the reference benchmark's efaec-1 scale: the synthetic
    community likelihood (2,301,952 ECs x 512 groups) packed in float32 and
    fitted with fit_result("rcgcpu", tol=1e-6) with escalation; theta held
@@ -38,8 +42,9 @@ Phases (each raises on failure, and the script exits non-zero):
    iterations through K5 and through the plain version from the same init,
    in float64 and float32 (the --emprecision float path's launches);
 7. bootstrap on the same community: B = 8 replicates drawn with the
-   BootstrapResampler, fit_rcg_batch in float32 on K3/K4, replicates 0 and
-   7 held against serial K1/K2 fits of the same counts;
+   BootstrapResampler, fit_rcg_batch in float32 on K3/K4, the
+   replicate-passes K3/K4 skipped as done, replicates 0 and 7 held against
+   serial K1/K2 fits of the same counts;
 8. the kernel profiler, python -m msweep_tpu_torch.prof_kernels at its
    defaults (2^19 x 512, 20 reps) in a subprocess: every row prints, none
    is above the roofline, T1-T3, K1 and K2 launched;
@@ -47,7 +52,8 @@ Phases (each raises on failure, and the script exits non-zero):
    that names the K1 and K2 kernels;
 10. EC-axis sharding on the one card: the phase-5 fit on two shards against
    the float64 fit and phase 5; EM and the B = 8 bootstrap on three shards
-   at the golden size against unsharded fits; the golden CLI as a
+   at the golden size against unsharded fits; a 3-EC problem on four
+   shards (one empty) against the unsharded fits; the golden CLI as a
    one-process NCCL job against the plain run; a two-process gloo run
    (both processes on this card) against the single-process fit.
 
@@ -94,17 +100,26 @@ SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 # multiply, compare or select is one instruction, issued at half those
 # rates.  Operations per cell that the algorithm needs besides its exps:
 # K1 18 (t, ghat, two maxes and exp sums, s, w, w s^2), K2 23 (two
-# softmaxes with their row terms, the column add), K3/K4 those per
-# replicate, K5 6, T1 1, T2 3, T3 6.  Exps per cell: K1 2 (lse(t) and the
-# softmax), K2 2 (the old and the new softmax), K5 1, T1 0, T2 1, T3 2,
-# each counted as the instructions of one exp on its compute type's pipe,
-# counted in this run's SASS (msweep_tpu_torch/exp_cost.py).  Other pipes
-# (MUFU, integer) are not counted, so the operations bound is a floor.
+# softmaxes with their row terms, the column add), K5 6, T1 1, T2 3, T3 6.
+# K3 and K4, per replicate, counted one by one from rcg_common.cuh's row
+# functions: K3 25 (t, its max, t - m1 and its exp sum: 4; ghat's compare,
+# multiply, add and select, its max, ghat - m and its exp sum: 7; gamma 2,
+# s 2, w 1, w s^2 2, the compare and select on e != 0 and the norm's add 3;
+# the row term's subtraction, multiply, select and add 4), K4 16 (ghat 4,
+# its max, ghat - m and its exp sum 3, gamma 2, w 1, w (logL - gamma) 2,
+# the compare and select 2, the row term's add 1, the float64 column add
+# 1, its conversion from float32 on another pipe not counted).  Exps per
+# cell: K1 2 (lse(t) and the softmax), K2 2 (the old and the new softmax),
+# K3 2 (K1's), K4 1 (the new softmax: K3 hands over the old row terms), K5
+# 1, T1 0, T2 1, T3 2, each counted as the instructions of one exp on its
+# compute type's pipe, counted in this run's SASS
+# (msweep_tpu_torch/exp_cost.py).  Other pipes (MUFU, integer) are not
+# counted, so the operations bound is a floor.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_INSTR_PER_S = {4: 67e12 / 2, 8: 34e12 / 2}  # by the compute type's size in bytes
-OPS_PER_CELL = {"rcg_norm": 18, "rcg_update": 23, "rcg_norm_batch": 18, "rcg_update_batch": 23,
+OPS_PER_CELL = {"rcg_norm": 18, "rcg_update": 23, "rcg_norm_batch": 25, "rcg_update_batch": 16,
                 "em_step": 6, "prof_read": 1, "prof_exp": 3, "prof_exp2": 6}
-EXPS_PER_CELL = {"rcg_norm": 2, "rcg_update": 2, "rcg_norm_batch": 2, "rcg_update_batch": 2,
+EXPS_PER_CELL = {"rcg_norm": 2, "rcg_update": 2, "rcg_norm_batch": 2, "rcg_update_batch": 1,
                  "em_step": 1, "prof_read": 0, "prof_exp": 1, "prof_exp2": 2}
 
 
@@ -205,33 +220,48 @@ def _batch_inputs(torch, E, G, B, ldtype, seed, pad_rows=0):
 
 
 def _check_batch(torch, K, KB, L, binputs, label):
-    """K3 and K4 (delta and absolute) against their plain versions, reruns
-    bit-identical, and every replicate b bit-identical to K1/K2 on column b
-    (same grid, same row loop).  Returns {kernel: max abs error}."""
+    """K3 (norms and row terms) and K4 (delta against K3's row terms, and
+    absolute) against their plain versions; reruns bit-identical; every
+    replicate b bit-identical to K1/K2 on column b (same grid, same row
+    order; K4's delta to K2's delta at (c_old, v_old), (c_new, v_new)); and
+    a done mask (every third replicate from the second) that zeroes those
+    replicates and leaves the live ones' bits.  Returns {kernel: max abs
+    error}."""
     countsT, psi, c_old, v_old, c_new, v_new = binputs
     cd = L.dtype
     rtol = 1e-5 if cd == torch.float32 else 1e-12
     B = countsT.shape[1]
+    done = torch.arange(B, device=L.device) % 3 == 1
+    live = ~done
     errs = {}
-    norms = KB.rcg_norm_batch_kernel(L, countsT, psi, c_old, v_old)
-    want = KB.rcg_norm_batch_plain(L, countsT, psi, c_old, v_old)
+    norms, rows = KB.rcg_norm_batch_kernel(L, countsT, psi, c_old, v_old)
+    want, rows_w = KB.rcg_norm_batch_plain(L, countsT, psi, c_old, v_old)
     again = KB.rcg_norm_batch_kernel(L, countsT, psi, c_old, v_old)
+    norms_m, rows_m = KB.rcg_norm_batch_kernel(L, countsT, psi, c_old, v_old, done)
     torch.cuda.synchronize()
     if not (torch.isfinite(norms).all() and torch.allclose(norms, want, rtol=rtol, atol=0)):
         raise AssertionError(f"{label} rcg_norm_batch: {norms.tolist()} vs {want.tolist()}")
-    if not torch.equal(norms, again):
+    row_err = float((rows - rows_w).abs().max()) if rows.numel() else 0.0
+    if not (torch.isfinite(rows).all() and row_err <= rtol * float(rows_w.abs().max())):
+        raise AssertionError(f"{label} rcg_norm_batch: row terms off by {row_err!r}")
+    if not (torch.equal(norms, again[0]) and torch.equal(rows, again[1])):
         raise AssertionError(f"{label} rcg_norm_batch: rerun differs")
-    errs["rcg_norm_batch"] = float((norms - want).abs().max())
+    if not (torch.equal(norms_m[live], norms[live]) and torch.equal(rows_m[:, live], rows[:, live])
+            and not norms_m[done].any() and not rows_m[:, done].any()):
+        raise AssertionError(f"{label} rcg_norm_batch: the done mask moved a live replicate "
+                             "or left a done one")
+    errs["rcg_norm_batch"] = max(float((norms - want).abs().max()), row_err)
     cols = [countsT[:, b].contiguous() for b in range(B)]
     for b in range(B):
         one = K.rcg_norm_kernel(L, cols[b], psi[b], float(c_old[b]), v_old[b], compute_dtype=cd)
         if float(one) != float(norms[b]):
             raise AssertionError(f"{label} rcg_norm_batch replicate {b}: not K1's bits")
     scales = [_row_abs_sum(torch, K, L, cols[b], float(c_new[b]), v_new[b], cd) for b in range(B)]
-    for mode, co, vo in (("delta", c_old, v_old), ("absolute", None, None)):
-        col, s = KB.rcg_update_batch_kernel(L, countsT, co, vo, c_new, v_new)
-        col_w, s_w = KB.rcg_update_batch_plain(L, countsT, co, vo, c_new, v_new)
-        col2, s2 = KB.rcg_update_batch_kernel(L, countsT, co, vo, c_new, v_new)
+    for mode, r_old, r_old_w in (("delta", rows, rows_w), ("absolute", None, None)):
+        col, s = KB.rcg_update_batch_kernel(L, countsT, r_old, c_new, v_new)
+        col_w, s_w = KB.rcg_update_batch_plain(L, countsT, r_old_w, c_new, v_new)
+        col2, s2 = KB.rcg_update_batch_kernel(L, countsT, r_old, c_new, v_new)
+        col_m, s_m = KB.rcg_update_batch_kernel(L, countsT, r_old, c_new, v_new, done)
         torch.cuda.synchronize()
         if not (torch.isfinite(col).all() and torch.allclose(col, col_w, rtol=rtol, atol=0)):
             raise AssertionError(f"{label} rcg_update_batch {mode}: colsum off by "
@@ -241,10 +271,14 @@ def _check_batch(torch, K, KB, L, binputs, label):
             raise AssertionError(f"{label} rcg_update_batch {mode}: gaps {gaps} vs {scales}")
         if not (torch.equal(col, col2) and torch.equal(s, s2)):
             raise AssertionError(f"{label} rcg_update_batch {mode}: rerun differs")
+        if not (torch.equal(col_m[live], col[live]) and torch.equal(s_m[live], s[live])
+                and not col_m[done].any() and not s_m[done].any()):
+            raise AssertionError(f"{label} rcg_update_batch {mode}: the done mask moved a live "
+                                 "replicate or left a done one")
         for b in range(B):
-            c1, s1 = K.rcg_update_kernel(
-                L, cols[b], None if co is None else float(co[b]), None if vo is None else vo[b],
-                float(c_new[b]), v_new[b], compute_dtype=cd)
+            old = (None, None) if r_old is None else (float(c_old[b]), v_old[b])
+            c1, s1 = K.rcg_update_kernel(L, cols[b], *old, float(c_new[b]), v_new[b],
+                                         compute_dtype=cd)
             if not (torch.equal(c1, col[b]) and float(s1) == float(s[b])):
                 raise AssertionError(f"{label} rcg_update_batch {mode} replicate {b}: "
                                      "not K2's bits")
@@ -331,14 +365,17 @@ def bound_ms(name, E, G, lsize, csize, exp_instr, B=1):
     an (E, G) matrix of `lsize`-byte cells computed in `csize`-byte
     floats, B replicates: each input read once and each output written
     once at HBM_BYTES_PER_S, against OPS_PER_CELL plus EXPS_PER_CELL
-    times `exp_instr[csize]` (instructions of one exp) at the peak rate."""
+    times `exp_instr[csize]` (instructions of one exp) at the peak rate.
+    K3 writes the (E, B) row terms that K4 reads back; both read the (B,)
+    done mask."""
     cells = E * G
     moved = {
         "rcg_norm": cells * lsize + E * lsize + 2 * G * csize + 8,
         "rcg_update": cells * lsize + E * lsize + 2 * G * csize + (G + 1) * 8,
-        "rcg_norm_batch": cells * lsize + E * B * lsize + (2 * G + 1) * B * csize + B * 8,
-        "rcg_update_batch": (cells * lsize + E * B * lsize + (2 * G + 2) * B * csize
-                             + (G + 1) * B * 8),
+        "rcg_norm_batch": (cells * lsize + E * B * lsize + (2 * G + 1) * B * csize + B * 8
+                           + E * B * csize + B),
+        "rcg_update_batch": (cells * lsize + E * B * lsize + E * B * csize
+                             + (G + 1) * B * csize + (G + 1) * B * 8 + B),
         "em_step": cells * lsize + E * lsize + 2 * E * csize + G * csize + (G + 1) * 8,
     }.get(name, cells * 4 + 4 + E * 4)  # T1-T3: x, s, the (E,) output
     t_bytes = moved / HBM_BYTES_PER_S
@@ -477,17 +514,25 @@ def phase_kernels(torch, exp_instr):
             b_in = _batch_inputs(torch, E, G, B, ld, 8)
             countsT, psi, c_old, v_old, c_new, v_new = b_in
             errs.update(_check_batch(torch, K, KB, L, b_in, f"E={E} G={G} {suffix} B={B}"))
+            # K4 in delta mode against K3's row terms, as a batched iteration runs it.
+            rows = KB.rcg_norm_batch_kernel(L, countsT, psi, c_old, v_old)[1]
+            rows_w = KB.rcg_norm_batch_plain(L, countsT, psi, c_old, v_old)[1]
             times["rcg_norm_batch"] = (
                 _time_ms(torch, lambda: KB.rcg_norm_batch_kernel(L, countsT, psi, c_old, v_old), 5),
                 _time_ms(torch, lambda: KB.rcg_norm_batch_plain(L, countsT, psi, c_old, v_old), 2),
             )
             times["rcg_update_batch"] = (
-                _time_ms(torch, lambda: KB.rcg_update_batch_kernel(L, countsT, c_old, v_old,
-                                                                   c_new, v_new), 5),
-                _time_ms(torch, lambda: KB.rcg_update_batch_plain(L, countsT, c_old, v_old,
-                                                                  c_new, v_new), 2),
+                _time_ms(torch, lambda: KB.rcg_update_batch_kernel(L, countsT, rows, c_new,
+                                                                   v_new), 5),
+                _time_ms(torch, lambda: KB.rcg_update_batch_plain(L, countsT, rows_w, c_new,
+                                                                  v_new), 2),
             )
-            del em_in, b_in, countsT
+            for name in ("rcg_norm_batch", "rcg_update_batch"):
+                info = KB.kernel_info(name, suffix, G, torch.cuda.current_device())
+                _say(f"  {name} {suffix} at G={G}: {info['registers']} registers, "
+                     f"{info['spill_bytes']} local (spilled) bytes a thread, tile of "
+                     f"{info['tile_rows']} staged rows, {info['ctas_per_sm']} CTAs an SM")
+            del em_in, b_in, countsT, rows, rows_w
         if ld == cd:
             info = KE.kernel_info(suffix, G, torch.cuda.current_device())
             _say(f"  em_step {suffix} at G={G}: {info['registers']} registers, "
@@ -687,6 +732,24 @@ def phase_cli(torch):
                     raise AssertionError(msg + " (bar rtol 1e-6)")
             _say(msg)
 
+        # Every group masked: no pass runs, and each group gets a zero row;
+        # the card's files against the CPU's, byte for byte.
+        for label, flags in (("--min-hits 100000", []),
+                             ("--min-hits 100000 --iters 2 --write-probs",
+                              ["--iters", "2", "--seed", "3", "--write-probs"])):
+            texts = []
+            for dev in ("cuda", "cpu"):
+                out = os.path.join(d, f"masked_{dev}")
+                _run_cli([*data, "-o", out, "--min-hits", "100000", "--backend", dev, *flags])
+                texts.append([open(f"{out}_{f}").read() for f in ("abundances.txt", "probs.tsv")
+                              if os.path.exists(f"{out}_{f}")])
+            rows = [ln.split("\t") for ln in texts[0][0].splitlines() if not ln.startswith("#")]
+            zero = bool(rows) and all(float(v) == 0 for r in rows for v in r[1:])
+            _say(f"  {label}: card and CPU files equal: {texts[0] == texts[1]}; "
+                 f"{len(rows)} rows, all zero: {zero}")
+            if texts[0] != texts[1] or not zero:
+                raise AssertionError(f"{label}: the card's files differ from the CPU's")
+
 
 def _community():
     """The synthetic community likelihood of bench.py:237-239 at the
@@ -881,9 +944,16 @@ def phase_bootstrap(torch, lik):
     launches = {fn.__name__: fn.launches for fn in counters}
     peak = torch.cuda.max_memory_allocated()
     iters = ib.tolist()
+    # Each K3 launch is one batched iteration; replicate b was live in its
+    # first iters[b] of them (its count stops when it is done), and done,
+    # so skipped by K3 and K4, in the rest.
+    n_it = launches["rcg_norm_batch_kernel"]
+    skipped = sum(n_it - i for i in iters)
+    k4_passes = launches["rcg_update_batch_kernel"] * B
     _say(f"  draw {draw_s:.3f} s; fit {fit_s:.3f} s, iterations per replicate {iters}, "
-         f"{max(iters) / fit_s:.3f} batched it/s, peak device memory {peak / 2**30:.3f} GiB, "
-         f"launches {launches}")
+         f"{n_it} batched, {max(iters) / fit_s:.3f} batched it/s, peak device memory "
+         f"{peak / 2**30:.3f} GiB, launches {launches}; replicate-passes skipped as done: "
+         f"{skipped} of K3's {n_it * B}, {skipped} of K4's {k4_passes}")
     if launches["rcg_norm_batch_kernel"] == 0 or launches["rcg_update_batch_kernel"] == 0:
         raise AssertionError(f"the bootstrap did not launch K3 and K4: {launches}")
     if launches["rcg_norm_batch_plain"] or launches["rcg_update_batch_plain"]:
@@ -1070,6 +1140,33 @@ def phase_shard(torch, lik, full):
          f"{i1.tolist()}; max |theta gap| {gap:.3e} (bars: same iterations, 1e-10)")
     if i1.tolist() != i3.tolist() or not gap <= 1e-10:
         raise AssertionError("the sharded bootstrap differs from the unsharded batch")
+
+    # Fewer ECs than shards: 3 ECs on 4 shards of the card, the last one
+    # empty, against the unsharded fit, float64: rcg, EM and a B = 8 batch.
+    from msweep_tpu_torch.core.likelihood import Likelihood
+
+    rng = np.random.default_rng(5)
+    small = Likelihood(n_ecs=3, n_groups_total=5, groups_mask=np.ones(5, bool),
+                       group_sizes=np.ones(5, np.int64),
+                       ec_counts=rng.integers(1, 100, size=3).astype(np.int64),
+                       zero_inflation=0.01,
+                       _dense=np.log(rng.dirichlet(np.ones(5) * 0.5, size=3) + 1e-9))
+    q1 = pack_problem(small, dtype=torch.float64, device=dev)
+    q4 = pack_problem(small, dtype=torch.float64, device=dev, devices=[dev] * 4)
+    fits = {algo: [fit_result(p, algo, tol=1e-9, max_iters=2000) for p in (q1, q4)]
+            for algo in ("rcgcpu", "emgpu")}
+    sbatch = BootstrapResampler(small.ec_counts, seed=7).resample_batch(8)
+    (t1, i1, _), (t4, i4, _) = (fit_rcg_batch(p, sbatch, tol=1e-8, max_iters=2000)
+                                for p in (q1, q4))
+    gaps = {a: float((r4.theta - r1.theta).abs().max()) for a, (r1, r4) in fits.items()}
+    gaps["batch"] = float((t4 - t1).abs().max())
+    its = {a: (r4.n_iters, r1.n_iters) for a, (r1, r4) in fits.items()}
+    same = all(x == y for x, y in its.values()) and i1.tolist() == i4.tolist()
+    _say(f"  3 ECs on 4 shards {q4.rows}: iterations (4 shards, 1) {its}, batch "
+         f"{i4.tolist()} / {i1.tolist()}; max |theta gap| {gaps} (bars: same iterations, "
+         f"1e-10)")
+    if not same or not max(gaps.values()) <= 1e-10:
+        raise AssertionError("the fit with fewer ECs than shards differs from the unsharded one")
 
     # The CLI as a one-process NCCL job: the process group, all_reduce and
     # the gather of gamma to the root really run.

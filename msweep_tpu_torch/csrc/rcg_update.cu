@@ -62,7 +62,7 @@ rcg_update_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts, CT
   for (int64_t g = threadIdx.x; g < G; g += THREADS) cols[g] = 0.0;
   __syncthreads();
   LT L[NPL];
-  CT vn[NPL], vo[NPL];
+  CT vn[NPL], vo[NPL], w[NPL];
   load_cols(v_new, 0, G, lane, vn);
   if (!absolute) load_cols(v_old, 0, G, lane, vo);
   double acc = 0.0;  // read by thread 0 only
@@ -74,10 +74,11 @@ rcg_update_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts, CT
       const CT cnt = (CT)counts[t0 + r];
       load_row_chunk(row, 0, G, vec, lane, L);
       CT res = data_row<LT, CT>(row, G, vec, nch, lane, cnt, c_new, v_new, L, vn,
-                                direct ? nullptr : wt + (int64_t)r * G, direct ? cols : nullptr);
+                                direct ? nullptr : wt + (int64_t)r * G, direct ? cols : nullptr,
+                                w);
       if (!absolute)
         res = res - data_row<LT, CT>(row, G, vec, nch, lane, cnt, c_old, v_old, L, vo, nullptr,
-                                     nullptr);
+                                     nullptr, w);
       if (lane == 0) rowres[r] = res;
     }
     __syncthreads();

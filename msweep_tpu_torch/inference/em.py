@@ -39,7 +39,7 @@ from ..utils import NEG
 
 from ..ops.em_kernels import em_step
 from .pack import DeviceProblem, auto_chunk
-from .result import FitResult
+from .result import FitResult, no_groups_batch, no_groups_fit
 
 F64 = torch.float64
 
@@ -180,7 +180,9 @@ def fit_em_result(
 ) -> FitResult:
     """Fit EM on a packed problem.  theta and the pseudocounts come from one
     pass at the converged theta; the responsibilities (this process's
-    rows) only on demand."""
+    rows) only on demand.  A problem with no groups returns no_groups_fit."""
+    if problem.n_groups == 0:
+        return no_groups_fit(problem)
     c = [n for _, n in problem.shards]
     state = _run_em(problem, c, tol=float(tol), max_iters=int(max_iters),
                     verbose=bool(verbose), chunk=auto_chunk(problem))
@@ -204,7 +206,10 @@ def fit_em_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
 
     Returns (theta (B, G) float64, iterations (B,), objective (B,)
     float64): abundances from one K5 colsum pass per replicate at its
-    converged theta, never a (B, E, G) batch."""
+    converged theta, never a (B, E, G) batch (no_groups_batch for a
+    problem with no groups)."""
+    if problem.n_groups == 0:
+        return no_groups_batch(problem, counts_batch)
     batch = [problem.split(c) for c in torch.as_tensor(counts_batch)]
     chunk = auto_chunk(problem)
     states = [_run_em(problem, c, tol=float(tol), max_iters=int(max_iters), verbose=False,

@@ -9,7 +9,9 @@ their weight is 0; padded rows carry count 0; padded alpha 1 adds
 lgamma(1) = 0 to the bound.
 
 EC-axis sharding: the rows are cut into contiguous ranges, one per shard,
-as even as E allows (the first E % n ranges get one row more).  In a
+as even as E allows (the first E % n ranges get one row more; with fewer
+rows than shards the last ranges are empty, and their passes add zero
+partials, so any E fits on any number of devices or processes).  In a
 distributed run (a torch.distributed process group is up) process r of R
 takes the r-th of R ranges and cuts it again over its own devices.  A
 pass runs its kernel on every shard of the process and sums the O(G)
@@ -103,7 +105,7 @@ class DeviceProblem:
 
 def split_rows(E: int, n: int) -> list:
     """n contiguous ranges [lo, hi) covering range(E), the first E % n one
-    row longer than the others."""
+    row longer than the others (empty ones when E < n)."""
     q, r = divmod(E, n)
     bounds = np.cumsum([0] + [q + (i < r) for i in range(n)]).tolist()
     return list(zip(bounds[:-1], bounds[1:]))
@@ -117,10 +119,6 @@ def _place(logL: np.ndarray, counts: np.ndarray, alpha: np.ndarray, bc: float,
     E, G = logL.shape
     devices = [torch.device(d) for d in devices]
     rank, world = rank_and_size()
-    n_total = world * len(devices)
-    if n_total > 1 and E < n_total:
-        raise ValueError(f"{E} equivalence classes cannot be split into {n_total} shards: "
-                         "every shard needs at least one row")
     lo, hi = split_rows(E, world)[rank]
     rows = [(lo + a, lo + b) for a, b in split_rows(hi - lo, len(devices))]
     if all(d == devices[0] for d in devices):

@@ -36,10 +36,13 @@ scalars on every process and every branch agrees.
 
 Bootstrap (fit_rcg_batch): B count vectors share one logL.  The batched
 state carries a leading (B,) axis on every field and lives on the device;
-K3/K4 (ops/rcg_batch_kernels.py) take c by pointer and accept/revert is a
-per-replicate torch.where, so a chunk of batched iterations is enqueued
-with no host sync and the host reads done.all() once per chunk.  The batch
-has no precision escalation, as in the JAX package.
+K3/K4 (ops/rcg_batch_kernels.py) take c and the done mask by pointer and
+accept/revert is a per-replicate torch.where, so a chunk of batched
+iterations is enqueued with no host sync and the host reads done.all()
+once per chunk.  Within an iteration K3 hands K4 the row terms at the
+current state, so K4 takes one softmax; replicates already done skip
+their rows.  The batch has no precision escalation, as in the JAX
+package.
 
 tol < 0 is bench mode: run exactly max_iters iterations.
 """
@@ -57,7 +60,7 @@ import torch
 from ..ops.rcg_batch_kernels import rcg_norm_batch, rcg_update_batch
 from ..ops.rcg_kernels import materialize_gamma, rcg_bound_stats, rcg_norm, rcg_update
 from .pack import DeviceProblem, auto_chunk
-from .result import FitResult
+from .result import FitResult, no_groups_batch, no_groups_fit
 
 F64 = torch.float64
 
@@ -326,7 +329,9 @@ def fit_rcg_result(
 ) -> FitResult:
     """Fit rcg on a packed problem.  theta and the pseudocounts come from
     the O(G) state; gamma (this process's rows) is built only by
-    FitResult.gamma()."""
+    FitResult.gamma().  A problem with no groups returns no_groups_fit."""
+    if problem.n_groups == 0:
+        return no_groups_fit(problem)
     if chunk is None:
         chunk = auto_chunk(problem)
     state = _run_rcg(problem, tol=float(tol), max_iters=int(max_iters),
@@ -381,14 +386,16 @@ def _where_b(mask: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.
     return torch.where(mask.view(-1, *([1] * (new.dim() - 1))), old, new)
 
 
-def _update_batch(prob: DeviceProblem, countsT: list, c_old, v_old, c_new, v_new):
-    """K4 on every shard, reduced: (colsum (B, G), data-term change (B,))."""
+def _update_batch(prob: DeviceProblem, countsT: list, rows_old, c_new, v_new, done=None):
+    """K4 on every shard, reduced: (colsum (B, G), data-term change (B,))
+    against each shard's K3 row terms rows_old (None: the data term)."""
     def to(x, L):
         return None if x is None else x.to(L.device)
 
     return prob.reduce([
-        rcg_update_batch(L, cT, to(c_old, L), to(v_old, L), to(c_new, L), to(v_new, L))
-        for (L, _), cT in zip(prob.shards, countsT)
+        rcg_update_batch(L, cT, None if rows_old is None else rows_old[k], to(c_new, L),
+                         to(v_new, L), to(done, L))
+        for k, ((L, _), cT) in enumerate(zip(prob.shards, countsT))
     ])
 
 
@@ -403,7 +410,7 @@ def _rcg_init_implicit_batch(prob: DeviceProblem, countsT: list, asum0: float,
     B, G, dev = countsT[0].shape[1], prob.n_groups, prob.device
     zeros_b = torch.zeros((B,), dtype=F64, device=dev)
     zeros_bg = torch.zeros((B, G), dtype=F64, device=dev)
-    colsum0, data0 = _update_batch(prob, countsT, None, None, zeros_b, zeros_bg)
+    colsum0, data0 = _update_batch(prob, countsT, None, zeros_b, zeros_bg)
     n0 = prob.alpha[None, :] + colsum0
     csum_b = prob.row_sum(countsT)
     a0 = torch.tensor(asum0, dtype=F64, device=dev)
@@ -421,12 +428,16 @@ def _rcg_init_implicit_batch(prob: DeviceProblem, countsT: list, asum0: float,
 def _step_batch(st: RCGBatchState, prob: DeviceProblem, countsT: list, *,
                 tol: float) -> RCGBatchState:
     """One batched iteration: K3, the O(B G) recursion, K4, and
-    per-replicate accept/revert, all on the device."""
+    per-replicate accept/revert, all on the device.  K3 hands each shard's
+    row terms at the current state to K4, so K4 takes one softmax; the
+    hand-off lives for this iteration only.  Replicates already done do no
+    row work (their outputs are 0, and _rcg_chunk_batch keeps their
+    state)."""
     psi = torch.special.digamma(st.n_counts)
-    (newnorm,) = prob.reduce([
-        (rcg_norm_batch(L, cT, psi.to(L.device), st.c.to(L.device), st.v.to(L.device)),)
-        for (L, _), cT in zip(prob.shards, countsT)
-    ])
+    outs = [rcg_norm_batch(L, cT, psi.to(L.device), st.c.to(L.device), st.v.to(L.device),
+                           st.done.to(L.device))
+            for (L, _), cT in zip(prob.shards, countsT)]
+    (newnorm,) = prob.reduce([(norm,) for norm, _ in outs])
     no_momentum = st.just_reset | (st.it == 0) | (st.oldnorm <= 0)
     beta = torch.where(no_momentum, torch.zeros_like(newnorm), newnorm / st.oldnorm)
 
@@ -435,7 +446,8 @@ def _step_batch(st: RCGBatchState, prob: DeviceProblem, countsT: list, *,
     c_new = st.c + e_new
     v_new = st.v + f_new
 
-    colsum, elbo_delta = _update_batch(prob, countsT, st.c, st.v, c_new, v_new)
+    colsum, elbo_delta = _update_batch(prob, countsT, [rows for _, rows in outs], c_new, v_new,
+                                       st.done)
     n_new = prob.alpha[None, :] + colsum
     delta = elbo_delta + (torch.lgamma(n_new) - torch.lgamma(st.n_counts)).sum(dim=1)
 
@@ -481,7 +493,10 @@ def fit_rcg_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
     counts_batch is (B, E) over every row; each shard keeps its (E_s, B)
     columns.  Returns (theta (B, G) float64, iterations (B,), bound (B,)
     float64): theta = (N - alpha) / sum(counts) per replicate, from the
-    state, never a (B, E, G) gamma batch."""
+    state, never a (B, E, G) gamma batch (no_groups_batch for a problem
+    with no groups)."""
+    if problem.n_groups == 0:
+        return no_groups_batch(problem, counts_batch)
     countsT = [part.T.contiguous() for part in problem.split(counts_batch)]
     asum0 = float(problem.alpha[: problem.n_groups].sum())
     csum0 = float(problem.row_sum([n for _, n in problem.shards]))

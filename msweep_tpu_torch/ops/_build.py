@@ -106,13 +106,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         sig(f"rcg_update_{lt}_{ct}", _P, _P, scalar, _P, scalar, _P, ctypes.c_int, _I64, _I64,
             _I64, _I64, _P, _P, _P, _P, _P)
     for suffix in ("f32_f32", "f64_f64"):
-        # logL, countsT, psi, c, v, E, G, B, rows_per_cta, n_cta, part, out, stream
-        sig(f"rcg_norm_batch_{suffix}", _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-            _P, _P, _P)
-        # logL, countsT, c_old, v_old, c_new, v_new, absolute, E, G, B,
-        # rows_per_cta, n_cta, part_scalar, part_cols, out_scalar, out_cols, stream
-        sig(f"rcg_update_batch_{suffix}", _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64,
-            _I64, _I64, _I64, _P, _P, _P, _P, _P)
+        # logL, countsT, psi, c, v, done, E, G, B, rows_per_cta, n_cta, part,
+        # rowterm, out, stream
+        sig(f"rcg_norm_batch_{suffix}", _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+            _P, _P, _P, _P)
+        # logL, countsT, rows_old, c_new, v_new, done, E, G, B, rows_per_cta,
+        # n_cta, part_scalar, part_cols, out_scalar, out_cols, stream
+        sig(f"rcg_update_batch_{suffix}", _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+            _P, _P, _P, _P, _P)
+        for name in ("rcg_norm_batch", "rcg_update_batch"):
+            # G, out (4 ints)
+            sig(f"{name}_{suffix}_info", _I64, _P)
         # logL, counts, lse_prev, logtheta, E, G, rows_per_cta, n_cta, lse_out,
         # part_scalar, part_cols, out_scalar, out_cols, stream
         sig(f"em_step_{suffix}", _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P,

@@ -1,0 +1,165 @@
+"""Time K3 and K4 (the bootstrap's batched passes, ops/rcg_batch_kernels.py)
+on the card at full size in both types, from the checkout given by --tree,
+so that two versions of the kernels can be compared in one call:
+
+    python3 msweep_tpu_torch/time_batch_kernels.py --tree DIR [--B 8] [--fit]
+
+DIR is the root of a checkout: its msweep_tpu_torch/ is imported and its
+kernels are built there.  The inputs are drawn on the card from --seed as
+chip_smoke.py phase 3 draws them (logL the log-softmax of normal logits
+times 2 at 2,301,952 x 512, counts in 1..39, psi, v and c away from
+convergence).  K4 is timed in its delta mode: against K3's row terms where
+the tree's K3 hands them over, else against (c_old, v_old).  Eight single
+K1 and K2 passes over the replicates' columns are timed beside them.
+The first line is the card's name and power limit (nvidia-smi); then one
+JSON object a line for each type: each kernel's ms a pass (CUDA events,
+the mean of --reps calls after one warm-up), checksums of the outputs,
+and registers, spills, tile rows and CTAs an SM where the tree reports
+them.  With --fit it runs chip_smoke.py phase 7 instead: the B = 8
+float32 bootstrap fit of the synthetic community at 2,301,952 x 512, and
+prints its seconds (host clock, the fit alone), iterations per replicate
+and K3/K4 launches.  Run it as a file, not with -m, so that the tree's
+package is the one imported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+
+def _inputs(torch, E, G, B, dtype, seed):
+    """logL, countsT, psi, c_old, v_old, c_new, v_new on the card."""
+    dev, f64 = torch.device("cuda"), torch.float64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = torch.empty((E, G), dtype=dtype, device=dev)
+    block = max(1, (1 << 26) // G)
+    for lo in range(0, E, block):
+        x = torch.randn(min(block, E - lo), G, generator=g, device=dev, dtype=f64)
+        L[lo:lo + block] = torch.log_softmax(x * 2.0, dim=1).to(dtype)
+    countsT = torch.randint(1, 40, (E, B), generator=g, device=dev).to(dtype).contiguous()
+    psi, v_old, v_new = (torch.randn(B, G, generator=g, device=dev, dtype=f64) for _ in range(3))
+    c_old, c_new = (0.5 + torch.rand(B, generator=g, device=dev, dtype=f64) for _ in range(2))
+    return L, countsT, psi, c_old, v_old, c_new, v_new
+
+
+def _time_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _fit(torch, args, KB):
+    """chip_smoke.py phase 7's fit, timed: {"fit_s", "iters", launches}."""
+    import time
+
+    from msweep_tpu_torch.core.sample import BootstrapResampler
+    from msweep_tpu_torch.inference import fit_rcg_batch, pack_problem
+    from msweep_tpu_torch.ops import _build
+    from msweep_tpu_torch.synth import make_community_likelihood
+
+    _build.load()  # a build of the kernels is not the fit's time
+    E, G = (int(v) for v in args.shape.lower().split("x"))
+    lik = make_community_likelihood(E, G, seed=1, similarity=0.99, cluster_size=8,
+                                    present_frac=0.06)
+    batch = BootstrapResampler(lik.ec_counts, seed=7).resample_batch(args.B)
+    p32 = pack_problem(lik, dtype=torch.float32, device=torch.device("cuda"))
+    counters = (KB.rcg_norm_batch_kernel, KB.rcg_update_batch_kernel)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, iters, _ = fit_rcg_batch(p32, batch, tol=1e-6, max_iters=5000)
+    iters = iters.tolist()
+    fit_s = time.perf_counter() - t
+    return dict(tree=args.tree, E=E, G=G, B=args.B, fit_s=fit_s, iters=iters,
+                **{fn.__name__: fn.launches for fn in counters})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--shape", default="2301952x512", help="E x G")
+    ap.add_argument("--B", type=int, default=8)
+    ap.add_argument("--fit", action="store_true", help="time the bootstrap fit of phase 7")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=8)
+    args = ap.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    sys.path[0] = tree  # the tree's package, not this file's directory
+    import torch
+
+    from msweep_tpu_torch.ops import rcg_batch_kernels as KB
+    from msweep_tpu_torch.ops import rcg_kernels as K
+
+    if not torch.cuda.is_available():
+        print("time_batch_kernels: needs a CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.abspath(KB.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {KB.__file__}, not the tree {tree}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if args.fit:
+        print(json.dumps(_fit(torch, args, KB)), flush=True)
+        return 0
+    handoff = "done" in inspect.signature(KB.rcg_norm_batch_kernel).parameters
+    E, G = (int(v) for v in args.shape.lower().split("x"))
+    B = args.B
+    for dtype in (torch.float32, torch.float64):
+        L, cT, psi, c_old, v_old, c_new, v_new = _inputs(torch, E, G, B, dtype, args.seed)
+        norms = KB.rcg_norm_batch_kernel(L, cT, psi, c_old, v_old)
+        if handoff:
+            norms, rows = norms
+            update = lambda: KB.rcg_update_batch_kernel(L, cT, rows, c_new, v_new)  # noqa: E731
+        else:
+            update = lambda: KB.rcg_update_batch_kernel(L, cT, c_old, v_old, c_new,  # noqa: E731
+                                                        v_new)
+        col, s = update()
+        rec = dict(tree=args.tree, E=E, G=G, B=B, dtype=str(dtype).split(".")[-1],
+                   handoff=handoff,
+                   k3_ms=_time_ms(torch, lambda: KB.rcg_norm_batch_kernel(L, cT, psi, c_old,
+                                                                          v_old), args.reps),
+                   k4_ms=_time_ms(torch, update, args.reps),
+                   norms_sum=float(norms.sum()), colsum_sum=float(col.sum()),
+                   delta_sum=float(s.sum()))
+        if handoff:
+            done = torch.zeros(B, dtype=torch.bool, device=L.device)
+            done[: B // 4] = True  # a quarter of the replicates finished
+            rec["k3_ms_quarter_done"] = _time_ms(
+                torch, lambda: KB.rcg_norm_batch_kernel(L, cT, psi, c_old, v_old, done), args.reps)
+            rec["k4_ms_quarter_done"] = _time_ms(
+                torch, lambda: KB.rcg_update_batch_kernel(L, cT, rows, c_new, v_new, done),
+                args.reps)
+        if hasattr(KB, "kernel_info"):
+            dev = torch.cuda.current_device()
+            for name in ("rcg_norm_batch", "rcg_update_batch"):
+                rec[name] = KB.kernel_info(name, KB.INSTANTIATIONS[dtype], G, dev)
+        if dtype == torch.float32:
+            cols = [cT[:, b].contiguous() for b in range(B)]
+            co, cn = c_old.tolist(), c_new.tolist()  # K1/K2 take c by value
+            kw = dict(compute_dtype=dtype)
+            rec["k1_x_B_ms"] = _time_ms(torch, lambda: [
+                K.rcg_norm_kernel(L, cols[b], psi[b], co[b], v_old[b], **kw)
+                for b in range(B)], max(1, args.reps // 2))
+            rec["k2_x_B_ms"] = _time_ms(torch, lambda: [
+                K.rcg_update_kernel(L, cols[b], co[b], v_old[b], cn[b], v_new[b], **kw)
+                for b in range(B)], max(1, args.reps // 2))
+        print(json.dumps(rec), flush=True)
+        del L, cT, psi, v_old, v_new, col
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -63,10 +63,11 @@ def _pad8(x, axis):
 
 @pytest.mark.parametrize("B", [1, 3])
 def test_batch_passes_f32_match_pallas(B):
-    """Plain K3 and K4 (delta mode) against rcg_norm_batch and
-    rcg_update_batch in interpret mode: rtol 1e-5 on the norms and column
-    sums (the Pallas kernels sum float32 partials across the grid), and
-    the ELBO changes within 1e-5 of each replicate's sum_e |row|."""
+    """Plain K3, and plain K4's delta against K3's row terms (the hand-off
+    of one iteration), against rcg_norm_batch and rcg_update_batch (delta
+    mode at (c_old, v_old)) in interpret mode: rtol 1e-5 on the norms and
+    column sums (the Pallas kernels sum float32 partials across the grid),
+    and the ELBO changes within 1e-5 of each replicate's sum_e |row|."""
     E, G, seed = 128, 256, 7
     logL, counts, _, _ = _problem(E, G, seed)
     countsT = _bootstrap_batch(counts, B, seed).T.astype(np.float32)
@@ -77,14 +78,15 @@ def test_batch_passes_f32_match_pallas(B):
         jl, jcT, jnp.asarray(_pad8(psi, 0), jnp.float32), jnp.asarray(_pad8(c_old, 0), f32),
         jnp.asarray(_pad8(v_old, 0), jnp.float32), interpret=True)
     L, cT = _t(logL, torch.float32), _t(countsT, torch.float32)
-    got = KB.rcg_norm_batch(L, cT, _t(psi), _t(c_old), _t(v_old))
+    got, rows = KB.rcg_norm_batch(L, cT, _t(psi), _t(c_old), _t(v_old))
     assert got.shape == (B,) and got.dtype == torch.float64
+    assert rows.shape == (E, B) and rows.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want)[:B], rtol=1e-5)
 
     col_w, elbo_w = rcg_pallas.rcg_update_batch(
         jl, jcT, jnp.asarray(_pad8(c_old, 0), f32), jnp.asarray(_pad8(v_old, 0), f32),
         jnp.asarray(_pad8(c_new, 0), f32), jnp.asarray(_pad8(v_new, 0), f32), interpret=True)
-    col, elbo = KB.rcg_update_batch(L, cT, _t(c_old), _t(v_old), _t(c_new), _t(v_new))
+    col, elbo = KB.rcg_update_batch(L, cT, rows, _t(c_new), _t(v_new))
     assert col.shape == (B, G) and elbo.shape == (B,)
     np.testing.assert_allclose(col.numpy(), np.asarray(col_w)[:B], rtol=1e-5, atol=1e-6)
     for b in range(B):
@@ -97,18 +99,26 @@ def test_batch_passes_f32_match_pallas(B):
 
 @pytest.mark.parametrize("ldtype", [torch.float32, torch.float64])
 def test_batch_passes_match_single_passes(ldtype):
-    """Replicate b of plain K3/K4 (both modes) against plain K1/K2 on
-    column b: the same arithmetic in a batched layout, so float64 agrees
-    to 1e-12 and float32 to float32 round-off of the row sums (1e-6)."""
+    """Replicate b of plain K3/K4 (K4's delta against K3's row terms, and
+    its absolute mode) against plain K1/K2 on column b, K2's delta at
+    (c_old, v_old), (c_new, v_new): the same arithmetic in a batched
+    layout, so float64 agrees to 1e-12 and float32 to float32 round-off of
+    the row sums (1e-6).  K3's row terms are K2's absolute mode at
+    (c_old, v_old), row by row."""
     E, G, B, seed = 96, 200, 3, 9
     logL, counts, _, _ = _problem(E, G, seed)
     L = _t(logL, ldtype)
     cT = _t(_bootstrap_batch(counts, B, seed).T, ldtype)
     psi, c_old, v_old, c_new, v_new = (_t(x) for x in _coeffs(B, G, seed))
     rtol = 1e-12 if ldtype == torch.float64 else 1e-6
-    norms = KB.rcg_norm_batch(L, cT, psi, c_old, v_old)
-    modes = {"delta": KB.rcg_update_batch(L, cT, c_old, v_old, c_new, v_new),
-             "absolute": KB.rcg_update_batch(L, cT, None, None, c_new, v_new)}
+    norms, rows = KB.rcg_norm_batch(L, cT, psi, c_old, v_old)
+    modes = {"delta": KB.rcg_update_batch(L, cT, rows, c_new, v_new),
+             "absolute": KB.rcg_update_batch(L, cT, None, c_new, v_new)}
+    for b in range(B):
+        _, s_w = K.rcg_update(L, cT[:, b].contiguous(), None, None, float(c_old[b]), v_old[b],
+                              compute_dtype=ldtype)
+        np.testing.assert_allclose(float(rows[:, b].to(torch.float64).sum()), float(s_w),
+                                   rtol=rtol * 10)
     for b in range(B):
         cnt, kw = cT[:, b].contiguous(), dict(compute_dtype=ldtype)
         want = K.rcg_norm(L, cnt, psi[b], float(c_old[b]), v_old[b], **kw)
@@ -118,6 +128,29 @@ def test_batch_passes_match_single_passes(ldtype):
             col_w, s_w = K.rcg_update(L, cnt, co, vo, float(c_new[b]), v_new[b], **kw)
             np.testing.assert_allclose(col[b].numpy(), col_w.numpy(), rtol=rtol, atol=1e-12)
             np.testing.assert_allclose(float(s[b]), float(s_w), rtol=rtol * 10)
+
+
+@pytest.mark.parametrize("ldtype", [torch.float32, torch.float64])
+def test_done_mask_skips_replicates(ldtype):
+    """A replicate flagged done gets 0 from plain K3 and K4 (norm, row
+    terms, colsum and change, both K4 modes); the live ones keep the bits
+    of the unmasked passes."""
+    E, G, B, seed = 80, 130, 4, 11
+    logL, counts, _, _ = _problem(E, G, seed)
+    L = _t(logL, ldtype)
+    cT = _t(_bootstrap_batch(counts, B, seed).T, ldtype)
+    psi, c_old, v_old, c_new, v_new = (_t(x) for x in _coeffs(B, G, seed))
+    done = torch.tensor([False, True, False, True])
+    live = ~done
+    norms, rows = KB.rcg_norm_batch(L, cT, psi, c_old, v_old)
+    norms_m, rows_m = KB.rcg_norm_batch(L, cT, psi, c_old, v_old, done)
+    assert torch.equal(norms_m[live], norms[live]) and torch.equal(rows_m[:, live], rows[:, live])
+    assert not norms_m[done].any() and not rows_m[:, done].any()
+    for rows_old in (rows, None):
+        col, s = KB.rcg_update_batch(L, cT, rows_old, c_new, v_new)
+        col_m, s_m = KB.rcg_update_batch(L, cT, rows_old, c_new, v_new, done)
+        assert torch.equal(col_m[live], col[live]) and torch.equal(s_m[live], s[live])
+        assert not col_m[done].any() and not s_m[done].any()
 
 
 def _jax_problem(logL, counts, alpha, bc):
@@ -266,9 +299,13 @@ def test_batch_kernel_wrappers_validate_before_launch():
     with pytest.raises(ValueError):  # countsT in another dtype than logL
         KB.rcg_norm_batch_kernel(L, cT.float(), m, c, m)
     with pytest.raises(ValueError):  # c of the wrong length
-        KB.rcg_update_batch_kernel(L, cT, c[:1], m, c, m)
+        KB.rcg_update_batch_kernel(L, cT, None, c[:1], m)
+    with pytest.raises(ValueError):  # row terms that are not (E, B)
+        KB.rcg_update_batch_kernel(L, cT, cT.T, c, m)
+    with pytest.raises(ValueError):  # a done mask of the wrong length
+        KB.rcg_norm_batch_kernel(L, cT, m, c, m, torch.zeros(3, dtype=torch.bool))
     with pytest.raises(ValueError):  # no replicate
-        KB.rcg_update_batch_kernel(L, cT[:, :0], None, None, c[:0], m[:0])
+        KB.rcg_update_batch_kernel(L, cT[:, :0], None, c[:0], m[:0])
     with pytest.raises(ValueError):  # neither cpu nor cuda
         KB.rcg_norm_batch(L.to("meta"), cT, m, c, m)
 
@@ -281,34 +318,47 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G", [300, 33, 700])  # warp per replicate (16-byte and 4-byte rows), per row
 @pytest.mark.parametrize("ldtype", list(KB.INSTANTIATIONS))
-def test_cuda_batch_kernels_match_plain(cuda_device, ldtype):
-    """K3/K4 (both modes) against their plain versions on the card, and
-    replicate by replicate against K1/K2 on the same column: the same bits
-    (same grid, same row loop); a rerun gives the same bits."""
-    E, G, B, seed = 4099, 300, 13, 17
+def test_cuda_batch_kernels_match_plain(cuda_device, ldtype, G):
+    """K3 (norms and row terms) and K4 (delta against K3's row terms, and
+    absolute) against their plain versions on the card, and replicate by
+    replicate against K1/K2 on the same column: the same bits (same grid,
+    same row order; K4's delta is K2's at (c_old, v_old), (c_new, v_new));
+    a rerun gives the same bits; a done mask zeroes its replicates and
+    leaves the others' bits."""
+    E, B, seed = 4099, 13, 17
     logL, counts, _, _ = _problem(E, G, seed)
     dev = cuda_device
     L = _t(logL, ldtype).to(dev)
     cT = _t(_bootstrap_batch(counts, B, seed).T, ldtype).to(dev).contiguous()
     psi, c_old, v_old, c_new, v_new = (_t(x).to(dev) for x in _coeffs(B, G, seed))
     rtol = 1e-5 if ldtype == torch.float32 else 1e-12
-    norms = KB.rcg_norm_batch_kernel(L, cT, psi, c_old, v_old)
-    np.testing.assert_allclose(norms.cpu().numpy(),
-                               KB.rcg_norm_batch_plain(L, cT, psi, c_old, v_old).cpu().numpy(),
-                               rtol=rtol)
-    assert torch.equal(norms, KB.rcg_norm_batch_kernel(L, cT, psi, c_old, v_old))
-    for co, vo in ((c_old, v_old), (None, None)):
-        col, s = KB.rcg_update_batch_kernel(L, cT, co, vo, c_new, v_new)
-        col_w, _ = KB.rcg_update_batch_plain(L, cT, co, vo, c_new, v_new)
+    norms, rows = KB.rcg_norm_batch_kernel(L, cT, psi, c_old, v_old)
+    norms_w, rows_w = KB.rcg_norm_batch_plain(L, cT, psi, c_old, v_old)
+    np.testing.assert_allclose(norms.cpu().numpy(), norms_w.cpu().numpy(), rtol=rtol)
+    np.testing.assert_allclose(rows.cpu().numpy(), rows_w.cpu().numpy(), rtol=rtol,
+                               atol=rtol * float(rows_w.abs().max()))
+    again = KB.rcg_norm_batch_kernel(L, cT, psi, c_old, v_old)
+    assert torch.equal(norms, again[0]) and torch.equal(rows, again[1])
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    done[[1, 8, 12]] = True
+    norms_m, rows_m = KB.rcg_norm_batch_kernel(L, cT, psi, c_old, v_old, done)
+    assert torch.equal(norms_m[~done], norms[~done]) and not norms_m[done].any()
+    assert torch.equal(rows_m[:, ~done], rows[:, ~done]) and not rows_m[:, done].any()
+    for r_old in (rows, None):
+        col, s = KB.rcg_update_batch_kernel(L, cT, r_old, c_new, v_new)
+        col_w, _ = KB.rcg_update_batch_plain(L, cT, r_old, c_new, v_new)
         np.testing.assert_allclose(col.cpu().numpy(), col_w.cpu().numpy(), rtol=rtol)
-        col2, s2 = KB.rcg_update_batch_kernel(L, cT, co, vo, c_new, v_new)
+        col2, s2 = KB.rcg_update_batch_kernel(L, cT, r_old, c_new, v_new)
         assert torch.equal(col, col2) and torch.equal(s, s2)
+        col_m, s_m = KB.rcg_update_batch_kernel(L, cT, r_old, c_new, v_new, done)
+        assert torch.equal(col_m[~done], col[~done]) and torch.equal(s_m[~done], s[~done])
+        assert not col_m[done].any() and not s_m[done].any()
         for b in range(B):
             cnt, kw = cT[:, b].contiguous(), dict(compute_dtype=ldtype)
             one = K.rcg_norm_kernel(L, cnt, psi[b], float(c_old[b]), v_old[b], **kw)
             assert float(one) == float(norms[b]), b
-            c1, s1 = K.rcg_update_kernel(L, cnt, None if co is None else float(co[b]),
-                                         None if vo is None else vo[b], float(c_new[b]),
-                                         v_new[b], **kw)
+            old = (None, None) if r_old is None else (float(c_old[b]), v_old[b])
+            c1, s1 = K.rcg_update_kernel(L, cnt, *old, float(c_new[b]), v_new[b], **kw)
             assert torch.equal(c1, col[b]) and float(s1) == float(s[b]), b

@@ -148,8 +148,28 @@ def test_ec_devices_like_make_ec_mesh(monkeypatch):
         ec_devices(5, "cuda")
 
 
-def test_fewer_rows_than_shards_refused():
-    """A shard must hold a row: E < shards is a clear error at packing."""
-    with pytest.raises(ValueError, match="3 equivalence classes cannot be split into 4"):
-        pack_problem(_lik(E=3), devices=["cpu"] * 4)
-    assert len(pack_problem(_lik(E=4), devices=["cpu"] * 4).shards) == 4
+@pytest.mark.parametrize("fit", ["rcg", "em", "batch"])
+@pytest.mark.parametrize("E", [0, 1, 3])
+def test_fewer_rows_than_shards_fit(E, fit):
+    """Fewer ECs than shards, down to none (every read unaligned): on 4
+    CPU shards, the last 4 - E of them empty, the float64 fit equals the
+    unsharded one, the same iterations and theta within 1e-10 (NaN where
+    there is no count to divide by, as unsharded), for rcg, EM and the
+    B = 8 rcg batch.  An empty shard's passes add zero partials (the
+    packing used to refuse E < shards)."""
+    lik = _lik(E=E, seed=11)
+    p1, p4 = pack_problem(lik), _sharded(lik, 4)
+    assert [hi - lo for lo, hi in p4.rows] == [1] * E + [0] * (4 - E)
+    if fit == "batch":
+        batch = _batch(lik, B=8) if E else np.zeros((8, 0))  # nothing to draw from at E = 0
+        (t1, i1, _), (t4, i4, _) = (fit_rcg_batch(p, batch, tol=1e-8, max_iters=2000)
+                                    for p in (p1, p4))
+        assert i4.tolist() == i1.tolist() and max(i1.tolist()) < 2000
+        np.testing.assert_allclose(t4.numpy(), t1.numpy(), rtol=0, atol=1e-10)
+        return
+    fitter = fit_rcg_result if fit == "rcg" else fit_em_result
+    r1, r4 = (fitter(p, tol=1e-9, max_iters=2000) for p in (p1, p4))
+    assert r4.n_iters == r1.n_iters < 2000
+    np.testing.assert_allclose(r4.theta.numpy(), r1.theta.numpy(), rtol=0, atol=1e-10)
+    assert r4.gamma().shape == (E, 5)
+    np.testing.assert_allclose(r4.gamma().numpy(), r1.gamma().numpy(), rtol=0, atol=1e-10)

@@ -44,7 +44,7 @@ Phases (each raises on failure, and the script exits non-zero):
 7. bootstrap on the same community: B = 8 replicates drawn with the
    BootstrapResampler, fit_rcg_batch in float32 on K3/K4, the
    replicate-passes K3/K4 skipped as done, replicates 0 and 7 held against
-   serial K1/K2 fits of the same counts;
+   serial K1/K2 fits of the same counts (fit_rcg_result(counts=));
 8. the kernel profiler, python -m msweep_tpu_torch.prof_kernels at its
    defaults (2^19 x 512, 20 reps) in a subprocess: every row prints, none
    is above the roofline, T1-T3, K1 and K2 launched;
@@ -55,9 +55,16 @@ Phases (each raises on failure, and the script exits non-zero):
    at the golden size against unsharded fits; a 3-EC problem on four
    shards (one empty) against the unsharded fits; the golden CLI as a
    one-process NCCL job against the plain run; a two-process gloo run
-   (both processes on this card) against the single-process fit.
+   (both processes on this card) against the single-process fit;
+11. the library API on the phase-5 community: pack_problem with no device
+   argument lands on the card; fit(p32, "rcgcpu") against phase 5's
+   iterations, objective and theta; fit_rcg_result(counts=) on replicate 0
+   of phase 7 against its batch column and against a replicate problem
+   built by hand (the objective shifted by the two bound constants);
+   fit_em, fit_em_result and fit(p64, "emgpu") at 64 float64 iterations,
+   equal to the bit.
 
-Each path of 5-10 sets its kernels' launch counters to 0 just before it
+Each path of 5-11 sets its kernels' launch counters to 0 just before it
 runs and reads them just after.
 
 The last lines are the kernels' JSON record, the card as nvidia-smi names
@@ -807,7 +814,7 @@ def phase_full(torch, lik, build_s):
     if theta32.shape != (G_FULL,) or not np.isfinite(theta32).all() or abs(theta32.sum() - 1) > 1e-6:
         raise AssertionError(f"theta is not a distribution: sum {theta32.sum()!r}")
     _busy_share(torch, lambda: fit_result(p32, "rcgcpu", tol=-1.0, max_iters=32))
-    iters = res.n_iters
+    iters, objective = res.n_iters, res.objective
     del p32, res
     torch.cuda.empty_cache()
 
@@ -824,7 +831,7 @@ def phase_full(torch, lik, build_s):
     del p64, res64
     torch.cuda.empty_cache()
     return launches, dict(theta32=theta32, theta64=theta64, iters=iters, n_f32=n_f32,
-                          fit_s=fit_s)
+                          fit_s=fit_s, objective=objective)
 
 
 def _em_fixed(torch, E_, KE, p, iters, plain):
@@ -922,8 +929,7 @@ def phase_em(torch, lik):
 def phase_bootstrap(torch, lik):
     _say(f"== phase 7: bootstrap at E={E_FULL} G={G_FULL}, B=8, float32")
     from msweep_tpu_torch.core.sample import BootstrapResampler
-    from msweep_tpu_torch.inference import bound_const, fit_rcg_batch, fit_rcg_result
-    from msweep_tpu_torch.inference import pack_problem
+    from msweep_tpu_torch.inference import fit_rcg_batch, fit_rcg_result, pack_problem
     from msweep_tpu_torch.ops import rcg_batch_kernels as KB
 
     dev = torch.device("cuda")
@@ -963,21 +969,23 @@ def phase_bootstrap(torch, lik):
     _busy_share(torch, lambda: fit_rcg_batch(p32, batch, tol=-1.0, max_iters=8, chunk=8),
                 "8 batched float32 iterations, B=8")
 
+    serial = {}
     for b in (0, B - 1):
-        counts = torch.as_tensor(batch[b], dtype=torch.float32, device=dev)
-        pb = replace(p32, shards=[(p32.logL, counts)],
-                     bound_const=bound_const(batch[b], np.ones(G_FULL)))
         t = time.perf_counter()
-        r = fit_rcg_result(pb, tol=1e-6, max_iters=5000, refine=False)
+        r = fit_rcg_result(p32, counts=batch[b], tol=1e-6, max_iters=5000, refine=False)
         gap = float(np.abs(r.theta.cpu().numpy() - tb[b]).max())
-        _say(f"  replicate {b}: serial K1/K2 fit {r.n_iters} iterations in "
+        _say(f"  replicate {b}: serial K1/K2 fit (counts=) {r.n_iters} iterations in "
              f"{time.perf_counter() - t:.3f} s, batch {iters[b]}; max |theta gap| {gap:.3e} "
              f"(bars: same iterations, 2e-6)")
         if r.n_iters != iters[b] or not gap <= 2e-6:
             raise AssertionError(f"replicate {b} differs from its serial fit")
+        serial[b] = r
     del p32
     torch.cuda.empty_cache()
-    return launches
+    rep0 = dict(counts=batch[0], column=tb[0], batch_iters=iters[0],
+                iters=serial[0].n_iters, objective=serial[0].objective,
+                theta=serial[0].theta.cpu().numpy())
+    return launches, rep0
 
 
 def phase_prof(torch):
@@ -1241,6 +1249,134 @@ def phase_shard(torch, lik, full):
          "processes on one device)")
 
 
+@contextlib.contextmanager
+def _timed_gamma(torch):
+    """A context in which FitResult.gamma records its seconds (the device
+    synchronized on both sides) in the list it yields."""
+    from msweep_tpu_torch.inference.result import FitResult
+
+    seconds, gamma = [], FitResult.gamma
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g = gamma(self)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return g
+
+    FitResult.gamma = timed
+    try:
+        yield seconds
+    finally:
+        FitResult.gamma = gamma
+
+
+def phase_api(torch, lik, full, rep0):
+    _say(f"== phase 11: the library API at E={E_FULL} G={G_FULL}")
+    from msweep_tpu_torch.inference import (bound_const, fit, fit_em, fit_em_result,
+                                            fit_rcg_result, mixture_components, pack_problem)
+    from msweep_tpu_torch.ops import em_kernels as KE
+    from msweep_tpu_torch.ops import rcg_kernels as K
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    p32 = pack_problem(lik, dtype=torch.float32)
+    if p32.device.type != "cuda":
+        raise AssertionError(f"pack_problem with no device packed onto {p32.device}")
+
+    counters = (K.rcg_norm_kernel, K.rcg_update_kernel, K.rcg_norm_plain, K.rcg_update_plain)
+    for fn in counters:
+        fn.launches = 0
+    t = time.perf_counter()
+    with _timed_gamma(torch) as gamma_s:
+        gamma, it, obj = fit(p32, "rcgcpu")
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    theta = mixture_components(gamma.double(), p32.counts.double()).cpu().numpy()
+    dth = float(np.abs(theta - full["theta32"]).max())
+    _say(f"  pack_problem(lik) on {p32.device}; fit(p32, \"rcgcpu\"): {it} iterations "
+         f"(phase 5 {full['iters']}), objective {obj!r} (phase 5 {full['objective']!r}), "
+         f"{fit_s:.3f} s with gamma() {gamma_s[0]:.3f} s, gamma {tuple(gamma.shape)} "
+         f"{gamma.dtype} on {gamma.device}, peak device memory {peak / 2**30:.3f} GiB; "
+         f"max |mixture_components (float64) - phase 5 theta| {dth:.3e} (bar 5e-5)")
+    if it != full["iters"] or obj != full["objective"]:
+        raise AssertionError("fit(p32) took another trajectory than phase 5's fit_result")
+    if tuple(gamma.shape) != (E_FULL, G_FULL) or gamma.device.type != "cuda" or not dth <= 5e-5:
+        raise AssertionError("fit(p32)'s gamma is not phase 5's fit on the card")
+    del gamma
+    torch.cuda.empty_cache()
+
+    # One bootstrap replicate over the same logL, against phase 7's batch
+    # column and serial fit, and against the replicate problem built by
+    # hand with its own bound constant.
+    t = time.perf_counter()
+    r = fit_rcg_result(p32, counts=rep0["counts"], refine=False)
+    rep_s = time.perf_counter() - t
+    th = r.theta.cpu().numpy()
+    gap = float(np.abs(th - rep0["column"]).max())
+    bc_rep = bound_const(rep0["counts"], np.ones(G_FULL))
+    hand = replace(p32, shards=[(p32.logL, torch.as_tensor(rep0["counts"], dtype=torch.float32,
+                                                            device=p32.device))],
+                   bound_const=bc_rep)
+    rh = fit_rcg_result(hand, refine=False)
+    shift = p32.bound_const - bc_rep
+    off = abs((r.objective - rh.objective) - shift)
+    _say(f"  fit_rcg_result(counts=replicate 0): {r.n_iters} iterations in {rep_s:.3f} s "
+         f"(phase 7: batch {rep0['batch_iters']}, serial {rep0['iters']}; the replicate "
+         f"built by hand {rh.n_iters}); max |theta - phase 7 column| {gap:.3e} (bar 2e-6); "
+         f"objective {r.objective!r}, by hand {rh.objective!r}, difference - "
+         f"(bound_const - bound_const(replicate) = {shift!r}) = {off:.3e} (bar 1e-12 x "
+         f"|objective|); bits equal to phase 7's serial fit: "
+         f"{r.objective == rep0['objective'] and np.array_equal(th, rep0['theta'])}")
+    if not gap <= 2e-6:
+        raise AssertionError(f"the counts= replicate is {gap} from phase 7's column")
+    if r.n_iters == rh.n_iters and not off <= 1e-12 * abs(r.objective):
+        raise AssertionError("the counts= objective is not the hand-built one shifted by the "
+                             "bound constants")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    _say(f"  launches of the three rcg fits {launches}")
+    if not (launches["rcg_norm_kernel"] and launches["rcg_update_kernel"]) or (
+            launches["rcg_norm_plain"] or launches["rcg_update_plain"]):
+        raise AssertionError(f"the library rcg fits did not run on K1/K2 alone: {launches}")
+    del p32, hand, r, rh
+    torch.cuda.empty_cache()
+
+    p64 = pack_problem(lik, dtype=torch.float64)
+    for fn in (KE.em_step_kernel, KE.em_step_plain):
+        fn.launches = 0
+    kw = dict(max_iters=64, tol=-1)
+    t = time.perf_counter()
+    g1, it1, obj1 = fit_em(p64, **kw)
+    em_s = time.perf_counter() - t
+    res = fit_em_result(p64, **kw)
+    g2 = res.gamma()
+    same = torch.equal(g1, g2)
+    row_err = float((torch.exp(g1).sum(dim=1) - 1).abs().max())
+    theta = mixture_components(g1, p64.counts)
+    dth = float((theta - res.theta).abs().max())
+    del g2
+    g3, it3, obj3 = fit(p64, "emgpu", **kw)
+    same3 = torch.equal(g1, g3)
+    em_launches = {fn.__name__: fn.launches for fn in (KE.em_step_kernel, KE.em_step_plain)}
+    _say(f"  fit_em(p64, 64 iterations): {it1} iterations in {em_s:.3f} s with gamma; "
+         f"fit_em_result {res.n_iters}, fit(\"emgpu\") {it3}; objectives {obj1!r} / "
+         f"{res.objective!r} / {obj3!r}; gamma equal to the bit: fit_em_result {same}, fit "
+         f"{same3}; max |row sum of exp(gamma) - 1| {row_err:.3e} (bar 1e-12); max "
+         f"|mixture_components - theta| {dth:.3e} (bar 1e-10); launches {em_launches}")
+    if not (it1 == res.n_iters == it3 == 64 and obj1 == res.objective == obj3 and same
+            and same3):
+        raise AssertionError("fit_em, fit_em_result and fit(emgpu) differ")
+    if not row_err <= 1e-12 or not dth <= 1e-10:
+        raise AssertionError("fit_em's gamma is not normalized, or not fit_em_result's theta")
+    if em_launches["em_step_kernel"] == 0 or em_launches["em_step_plain"]:
+        raise AssertionError(f"the library EM fits did not run on K5 alone: {em_launches}")
+    del p64, res, g1, g3, theta
+    torch.cuda.empty_cache()
+    _say(f"  phase 11 {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1257,10 +1393,12 @@ def main() -> int:
     lik, build_s = _community()
     launches, full = phase_full(torch, lik, build_s)
     launches.update(phase_em(torch, lik))
-    launches.update(phase_bootstrap(torch, lik))
+    boot_launches, rep0 = phase_bootstrap(torch, lik)
+    launches.update(boot_launches)
     launches.update(phase_prof(torch))
     phase_trace(torch)
     phase_shard(torch, lik, full)
+    phase_api(torch, lik, full, rep0)
     loaded = sorted(m for m in set(sys.modules) - START_MODULES
                     if m.split(".")[0] in ("jax", "jaxlib", "msweep_tpu"))
     if loaded:

@@ -26,4 +26,7 @@ package imports neither jax nor anything of msweep_tpu.
 
 __version__ = "0.1.0"  # the outputs write msweep-tpu-{__version__}, as the JAX package does
 
-__all__ = ["__version__"]
+# mSWEEP version whose output format and CLI contract this package implements
+REFERENCE_COMPAT_VERSION = "2.2.x"
+
+__all__ = ["REFERENCE_COMPAT_VERSION", "__version__"]

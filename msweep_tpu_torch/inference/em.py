@@ -171,21 +171,46 @@ def _em_state_pseudocounts(problem: DeviceProblem, state: EMState, counts: list)
     return _pass(problem, counts, state.lse, state.theta)[1]
 
 
+def fit_em(
+    problem: DeviceProblem,
+    *,
+    tol: float = 1e-6,
+    max_iters: int = 5000,
+    verbose: bool = False,
+    counts=None,
+    chunk: int | None = None,
+):
+    """EM on a packed problem: (gamma (E, G) log-responsibilities of this
+    process's rows, iterations, objective), as the JAX package's fit_em
+    returns them but without its padding.  See fit_em_result."""
+    res = fit_em_result(problem, tol=tol, max_iters=max_iters, verbose=verbose, counts=counts,
+                        chunk=chunk)
+    return res.gamma(), res.n_iters, res.objective
+
+
 def fit_em_result(
     problem: DeviceProblem,
     *,
     tol: float = 1e-6,
     max_iters: int = 5000,
     verbose: bool = False,
+    counts=None,
+    chunk: int | None = None,
 ) -> FitResult:
     """Fit EM on a packed problem.  theta and the pseudocounts come from one
     pass at the converged theta; the responsibilities (this process's
-    rows) only on demand.  A problem with no groups returns no_groups_fit."""
+    rows) only on demand.  `counts` (E,) overrides the problem's counts
+    over the same logL (one bootstrap replicate); `chunk` is the number
+    of iterations between host convergence checks (auto_chunk).  A
+    problem with no groups returns no_groups_fit."""
+    problem = problem.with_counts(counts)
     if problem.n_groups == 0:
         return no_groups_fit(problem)
+    if chunk is None:
+        chunk = auto_chunk(problem)
     c = [n for _, n in problem.shards]
     state = _run_em(problem, c, tol=float(tol), max_iters=int(max_iters),
-                    verbose=bool(verbose), chunk=auto_chunk(problem))
+                    verbose=bool(verbose), chunk=chunk)
     w = _em_state_pseudocounts(problem, state, c)
     return FitResult(
         theta=w / problem.row_sum(c),
@@ -198,11 +223,13 @@ def fit_em_result(
 
 
 def fit_em_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
-                 max_iters: int = 5000):
+                 max_iters: int = 5000, chunk: int | None = None):
     """EM over a (B, E) batch of count vectors sharing one logL
     (msweep_tpu/inference/em.py fit_em_batch).  Each replicate runs the
     serial loop and stops at its own convergence, which is where the JAX
     package's lockstep batch freezes it; each step is one K5 pass.
+    `chunk` (default auto_chunk) is each replicate's convergence-check
+    interval.
 
     Returns (theta (B, G) float64, iterations (B,), objective (B,)
     float64): abundances from one K5 colsum pass per replicate at its
@@ -211,7 +238,8 @@ def fit_em_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
     if problem.n_groups == 0:
         return no_groups_batch(problem, counts_batch)
     batch = [problem.split(c) for c in torch.as_tensor(counts_batch)]
-    chunk = auto_chunk(problem)
+    if chunk is None:
+        chunk = auto_chunk(problem)
     states = [_run_em(problem, c, tol=float(tol), max_iters=int(max_iters), verbose=False,
                       chunk=chunk) for c in batch]
     theta = torch.stack([

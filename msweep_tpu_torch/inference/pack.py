@@ -22,12 +22,13 @@ its shard.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from ..core.likelihood import Likelihood
+from ..device import resolve_device
 from ..parallel.mesh import all_reduce_sum, process_group_up, rank_and_size
 from ..utils import PAD_THRESHOLD
 from .mixture import bound_const as _bound_const
@@ -46,6 +47,7 @@ class DeviceProblem:
     n_groups: int  # logical G
     bound_const: float  # constant ELBO terms (see mixture.bound_const)
     distributed: bool = False  # reduce() all-reduces over the process group
+    ec_shards: int = 1  # shards over every process
 
     @property
     def device(self) -> torch.device:
@@ -75,8 +77,19 @@ class DeviceProblem:
         slices of x's last axis (E) for each shard, on its device, in its
         dtype."""
         x = torch.as_tensor(x)
+        if x.shape[-1] != self.n_ecs:
+            raise ValueError(f"expected {self.n_ecs} rows on the last axis, got {x.shape[-1]}")
         return [x[..., lo:hi].to(device=L.device, dtype=L.dtype)
                 for (lo, hi), (L, _) in zip(self.rows, self.shards)]
+
+    def with_counts(self, counts) -> DeviceProblem:
+        """The problem over another (E,) count vector, e.g. a bootstrap
+        replicate: views of the same logL, each shard with its rows of
+        `counts`.  bound_const is kept, as the JAX package's fits keep
+        problem.bound_const whatever their counts; None returns self."""
+        if counts is None:
+            return self
+        return replace(self, shards=[(L, c) for (L, _), c in zip(self.shards, self.split(counts))])
 
     def reduce(self, parts: list) -> list:
         """Sums of per-shard partials: parts holds, for each shard, a tuple
@@ -129,11 +142,17 @@ def _place(logL: np.ndarray, counts: np.ndarray, alpha: np.ndarray, bc: float,
         shards = [(torch.from_numpy(logL[a:b]).to(d), torch.from_numpy(counts[a:b]).to(d))
                   for (a, b), d in zip(rows, devices)]
     valid = logL[0] > PAD_THRESHOLD if E else np.ones(G, dtype=bool)
+    distributed = process_group_up()
+    n_shards = len(devices)
+    if distributed:
+        n_shards = all_reduce_sum([torch.tensor([n_shards], dtype=torch.float64,
+                                                device=devices[0])])[0]
     return DeviceProblem(
         shards=shards, rows=rows,
         alpha=torch.from_numpy(alpha).to(devices[0]),
         valid=torch.from_numpy(valid).to(devices[0]),
-        n_ecs=E, n_groups=G, bound_const=float(bc), distributed=process_group_up(),
+        n_ecs=E, n_groups=G, bound_const=float(bc), distributed=distributed,
+        ec_shards=int(n_shards),
     )
 
 
@@ -141,15 +160,19 @@ def pack_problem(
     lik: Likelihood,
     alpha: np.ndarray | None = None,
     dtype: torch.dtype = torch.float64,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     devices=None,
+    counts: np.ndarray | None = None,
 ) -> DeviceProblem:
     """Copy a host Likelihood to `device`, or shard its rows over
     `devices` (a list that may name one device several times).
 
-    `alpha` is the --alphas prior (default all 1.0).  The dense matrix is
-    built once on the host in `dtype` (whole, in every process of a
-    distributed run), and each process copies its own rows to the device
+    `device` is the card unless the caller names the CPU ("cpu"); with no
+    GPU present the default raises, as --backend cuda does.  `alpha` is the
+    --alphas prior (default all 1.0).  `counts` overrides the EC counts
+    (a bootstrap replicate), and bound_const is then theirs.  The dense
+    matrix is built once on the host in `dtype` (whole, in every process of
+    a distributed run), and each process copies its own rows to the device
     once."""
     E, G = lik.n_ecs, lik.n_groups
     if alpha is None:
@@ -157,11 +180,13 @@ def pack_problem(
     alpha = np.asarray(alpha, dtype=np.float64)
     if len(alpha) != G:
         raise ValueError("--alphas must have the same number of values as there are groups")
-    counts = np.asarray(lik.ec_counts, dtype=np.float64)
+    counts = np.asarray(lik.ec_counts if counts is None else counts, dtype=np.float64)
+    if len(counts) != E:
+        raise ValueError(f"counts has {len(counts)} values for {E} equivalence classes")
 
     np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     return _place(lik.dense(dtype=np_dtype), counts.astype(np_dtype), alpha,
-                  _bound_const(counts, alpha), devices or [device])
+                  _bound_const(counts, alpha), devices or [resolve_device(device)])
 
 
 def problem_from_numpy(logL, counts, alpha, bc: float, device) -> DeviceProblem:

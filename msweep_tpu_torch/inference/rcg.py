@@ -318,18 +318,42 @@ def _state_theta(state: RCGImplicitState, prob: DeviceProblem) -> torch.Tensor:
     return (state.n_counts - prob.alpha) / prob.row_sum([n for _, n in prob.shards])
 
 
+def fit_rcg(
+    problem: DeviceProblem,
+    *,
+    tol: float = 1e-6,
+    max_iters: int = 5000,
+    verbose: bool = False,
+    counts=None,
+    chunk: int | None = None,
+    refine: bool | str = True,
+):
+    """rcg on a packed problem: (gamma (E, G) log-probabilities of this
+    process's rows, iterations, bound), as the JAX package's fit_rcg
+    returns them but without its padding.  See fit_rcg_result."""
+    res = fit_rcg_result(problem, tol=tol, max_iters=max_iters, verbose=verbose, counts=counts,
+                         chunk=chunk, refine=refine)
+    return res.gamma(), res.n_iters, res.objective
+
+
 def fit_rcg_result(
     problem: DeviceProblem,
     *,
     tol: float = 1e-6,
     max_iters: int = 5000,
     verbose: bool = False,
+    counts=None,
     chunk: int | None = None,
     refine: bool | str = True,
 ) -> FitResult:
     """Fit rcg on a packed problem.  theta and the pseudocounts come from
     the O(G) state; gamma (this process's rows) is built only by
-    FitResult.gamma().  A problem with no groups returns no_groups_fit."""
+    FitResult.gamma().  `counts` (E,) overrides the problem's counts over
+    the same logL (one bootstrap replicate).  problem.bound_const is kept
+    then, as in the JAX package, so the bound differs from that of
+    pack_problem(lik, counts=counts) by the two constants' difference.  A
+    problem with no groups returns no_groups_fit."""
+    problem = problem.with_counts(counts)
     if problem.n_groups == 0:
         return no_groups_fit(problem)
     if chunk is None:

@@ -58,7 +58,7 @@ def test_rcg_f64_shard_invariance(n):
     """Float64 rcg sharded against the port unsharded and against the JAX
     package's implicit float64 fit on an n-device mesh."""
     lik = _lik()
-    r1 = fit_rcg_result(pack_problem(lik), tol=1e-9)
+    r1 = fit_rcg_result(pack_problem(lik, device="cpu"), tol=1e-9)
     p = _sharded(lik, n)
     r2 = fit_rcg_result(p, tol=1e-9)
     rj = jax_fit_rcg_result(jax_pack_problem(_lik(cls=JaxLikelihood), mesh=make_ec_mesh(n)),
@@ -77,7 +77,7 @@ def test_em_f64_shard_invariance(n):
     """Float64 EM sharded against the port unsharded and against the JAX
     package's EM on an n-device mesh."""
     lik = _lik(seed=3)
-    r1 = fit_em_result(pack_problem(lik), tol=1e-10)
+    r1 = fit_em_result(pack_problem(lik, device="cpu"), tol=1e-10)
     p = _sharded(lik, n)
     r2 = fit_em_result(p, tol=1e-10)
     rj = jax_fit_em_result(jax_pack_problem(_lik(seed=3, cls=JaxLikelihood),
@@ -99,9 +99,9 @@ def test_rcg_f32_escalation_sharded(n):
     lik = make_community_likelihood(2051, 64, seed=2, similarity=0.99, cluster_size=8,
                                     present_frac=0.15)
     kw = dict(tol=1e-6, max_iters=3000)
-    r1 = fit_rcg_result(pack_problem(lik, dtype=torch.float32), **kw)
+    r1 = fit_rcg_result(pack_problem(lik, dtype=torch.float32, device="cpu"), **kw)
     r2 = fit_rcg_result(_sharded(lik, n, torch.float32), **kw)
-    raw = fit_rcg_result(pack_problem(lik, dtype=torch.float32), refine=False, **kw)
+    raw = fit_rcg_result(pack_problem(lik, dtype=torch.float32, device="cpu"), refine=False, **kw)
     assert r1.n_iters > raw.n_iters, "the float32 floor was not reached"
     np.testing.assert_allclose(r2.theta.numpy(), r1.theta.numpy(), rtol=0, atol=2e-6)
 
@@ -122,7 +122,7 @@ def test_batches_shard_invariance(n, dtype, tol, bar):
     per-replicate iterations and theta within the bar."""
     lik = _lik(seed=7)
     batch = _batch(lik)
-    p1, p2 = pack_problem(lik, dtype=dtype), _sharded(lik, n, dtype)
+    p1, p2 = pack_problem(lik, dtype=dtype, device="cpu"), _sharded(lik, n, dtype)
     for fit in (fit_rcg_batch, fit_em_batch):
         t1, i1, _ = fit(p1, batch, tol=tol, max_iters=2000)
         t2, i2, _ = fit(p2, batch, tol=tol, max_iters=2000)
@@ -158,7 +158,7 @@ def test_fewer_rows_than_shards_fit(E, fit):
     B = 8 rcg batch.  An empty shard's passes add zero partials (the
     packing used to refuse E < shards)."""
     lik = _lik(E=E, seed=11)
-    p1, p4 = pack_problem(lik), _sharded(lik, 4)
+    p1, p4 = pack_problem(lik, device="cpu"), _sharded(lik, 4)
     assert [hi - lo for lo, hi in p4.rows] == [1] * E + [0] * (4 - E)
     if fit == "batch":
         batch = _batch(lik, B=8) if E else np.zeros((8, 0))  # nothing to draw from at E = 0

@@ -18,13 +18,15 @@ Phases (each raises on failure, and the script exits non-zero):
    512, 4096, 5000, 30000) and a JAX-style padded problem; a rerun must
    give the same bits, each K3/K4 replicate the bits of K1/K2 on its own
    column (K4's delta K2's at the old and the new state), and a done mask
-   must zero its replicates and leave the others' bits; then kernel and
+   must zero its replicates and leave the others' bits; K1, K2 and K5 with
+   their done flag set must return zeros; then kernel and
    plain times at 2,301,952 x 512 (K3/K4 at B = 8), each beside its bound
    (the larger of the bytes it must move at 3.35 TB/s and its operations
    at the data sheet's peak) and the share of the bound it reaches, T1 and
    T2 also beside torch.sum and torch.logsumexp over the rows of the same
    matrix; K3/K4's and K5's registers, spills, tiles and CTAs an SM in
-   both types; T1's ratio to torch.sum;
+   both types; T1's ratio to torch.sum; K1, K2 and K5 with the done flag
+   set, each under 5% of its live pass;
 4. the CLI on tests/golden through msweep_tpu_torch.cli.main on the card:
    rcg in float32 with escalation and --precision double against the golden
    files; emgpu (float64 and --emprecision float), --iters 4 --seed 7
@@ -35,10 +37,17 @@ Phases (each raises on failure, and the script exits non-zero):
 5. the main path at the reference benchmark's efaec-1 scale: the synthetic
    community likelihood (2,301,952 ECs x 512 groups) packed in float32 and
    fitted with fit_result("rcgcpu", tol=1e-6) with escalation; theta held
-   against a float64 fit of the same problem; K1/K2 launches by
-   instantiation;
+   against a float64 fit of the same problem; iterations and objective
+   beside the parent tree's (PARENT); K1/K2 launches by instantiation, and
+   as live and skipped (a frozen state's steps inside a chunk); the idle
+   share over one chunk of 32 float32 iterations; then one 64-step chunk
+   of the serial rcg (float32, then blind float32 rows in float64) with
+   every device read an error (torch.cuda.set_sync_debug_mode), timed;
 6. EM on the same community with the emgpu default policy (float64
-   matrix, tol 1e-6), K5's time a pass beside the iteration's, then 20
+   matrix, tol 1e-6), iterations and objective beside the parent's, K5
+   launches as live and skipped, K5's time a pass beside the iteration's,
+   the idle share over one chunk of 32 iterations, one 64-step chunk with
+   every device read an error, then 20
    iterations through K5 and through the plain version from the same init,
    in float64 and float32 (the --emprecision float path's launches);
 7. bootstrap on the same community: B = 8 replicates drawn with the
@@ -47,7 +56,8 @@ Phases (each raises on failure, and the script exits non-zero):
    serial K1/K2 fits of the same counts (fit_rcg_result(counts=));
 8. the kernel profiler, python -m msweep_tpu_torch.prof_kernels at its
    defaults (2^19 x 512, 20 reps) in a subprocess: every row prints, none
-   is above the roofline, T1-T3, K1 and K2 launched;
+   is above the roofline, T1-T3, K1 and K2 launched; the `full` row (one
+   chunk of iterations) against K1 + K2;
 9. --trace-dir: the golden CLI on the card writes a torch.profiler trace
    that names the K1 and K2 kernels;
 10. EC-axis sharding on the one card: the phase-5 fit on two shards against
@@ -62,7 +72,7 @@ Phases (each raises on failure, and the script exits non-zero):
    of phase 7 against its batch column and against a replicate problem
    built by hand (the objective shifted by the two bound constants);
    fit_em, fit_em_result and fit(p64, "emgpu") at 64 float64 iterations,
-   equal to the bit.
+   equal to the bit; iterations and objectives beside the parent's.
 
 Each path of 5-11 sets its kernels' launch counters to 0 just before it
 runs and reads them just after.
@@ -99,6 +109,15 @@ KERNEL_SHAPES = [(1_000_003, 4), (65_536, 512), (4_099, 4096), (777, 5_000), (1,
 PADDED = (4_096, 600, 72, 88)  # E, G, padded rows, padded columns
 BATCH_SIZES = (1, 3, 8, 13)  # bootstrap replicates for K3/K4
 SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
+# What the parent tree's fits gave on the card (iterations, objective):
+# phase 5's and phase 11's rcg fit and 64 float64 EM iterations from
+# chip_smoke.py at commit cd88794, phase 6's EM fit at its cap from
+# msweep_tpu_torch/time_fits.py --tree at that commit.  The loops moved
+# onto the device keep each scalar operation and its order, so a run gives
+# these to the bit.
+PARENT = {"rcg": (499, -18682388.05370243), "em": (5000, -18677316.45642239),
+          "em64": (64, -18704662.12176752)}
+DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a live pass
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
 # device memory at 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64
@@ -136,8 +155,9 @@ def _say(msg: str) -> None:
 
 def _inputs(torch, E, G, ldtype, seed, pad_rows=0, pad_cols=0):
     """logL (log-probabilities of scaled normal logits), counts in 1..39,
-    and (psi, c_old, v_old, c_new, v_new) away from convergence, all drawn
-    on the card from `seed`.  Padded rows get count 0 and NEG cells,
+    and (psi, c_old, v_old, c_new, v_new) away from convergence (c as 0-d
+    float64 tensors, as the optimizer passes it), all drawn on the card
+    from `seed`.  Padded rows get count 0 and NEG cells,
     padded columns NEG cells, as the JAX package pads."""
     from msweep_tpu_torch.utils import NEG
 
@@ -151,7 +171,7 @@ def _inputs(torch, E, G, ldtype, seed, pad_rows=0, pad_cols=0):
     if pad_cols:
         L[:, G - pad_cols:] = NEG
     vecs = [torch.randn(G, generator=g, device=dev, dtype=f64) for _ in range(3)]
-    c_old, c_new = (0.5 + torch.rand(2, generator=g, device=dev, dtype=f64)).tolist()
+    c_old, c_new = (0.5 + torch.rand(2, generator=g, device=dev, dtype=f64)).unbind()
     L = L.to(ldtype).contiguous()
     return L, counts.to(ldtype), vecs[0], c_old, vecs[1], c_new, vecs[2]
 
@@ -162,7 +182,7 @@ def _row_abs_sum(torch, K, L, counts, c, v, cd):
     for lo in range(0, L.shape[0], 1 << 15):
         Lb = L[lo:lo + (1 << 15)]
         Lc = Lb.to(cd)
-        gamma, num, den = K.masked_softmax(Lb, Lc, torch.tensor(c, dtype=cd, device=L.device),
+        gamma, num, den = K.masked_softmax(Lb, Lc, torch.as_tensor(c, dtype=cd, device=L.device),
                                            v.to(cd))
         w = counts[lo:lo + (1 << 15)].to(cd)[:, None] * (num / den)
         total += float((w * (Lc - gamma)).sum(dim=1).abs().to(torch.float64).sum())
@@ -191,7 +211,8 @@ def _em_inputs(torch, L, counts, seed):
 
 def _check_em(torch, KE, L, em_inputs, label):
     """K5 against its plain version (lse and colsum rtol 1e-5 / 1e-12, ddot
-    within that times sum |c lse|); rerun bit-identical.  Max abs error."""
+    within that times sum |c lse|); rerun bit-identical; zeros with the done
+    flag set.  Max abs error."""
     rtol = 1e-5 if L.dtype == torch.float32 else 1e-12
     got = KE.em_step_kernel(L, *em_inputs)
     want = KE.em_step_plain(L, *em_inputs)
@@ -210,6 +231,9 @@ def _check_em(torch, KE, L, em_inputs, label):
         raise AssertionError(f"{label} em_step: ddot gap {gap!r} > {rtol} * {scale!r}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{label} em_step: rerun differs")
+    done = KE.em_step_kernel(L, *em_inputs, done=torch.ones((), dtype=torch.bool, device=L.device))
+    if any(bool(o.any()) for o in done):
+        raise AssertionError(f"{label} em_step: a pass with its done flag set returned nonzeros")
     return max(float((lse - lse_w).abs().max()), float((col - col_w).abs().max()), gap)
 
 
@@ -260,10 +284,10 @@ def _check_batch(torch, K, KB, L, binputs, label):
     errs["rcg_norm_batch"] = max(float((norms - want).abs().max()), row_err)
     cols = [countsT[:, b].contiguous() for b in range(B)]
     for b in range(B):
-        one = K.rcg_norm_kernel(L, cols[b], psi[b], float(c_old[b]), v_old[b], compute_dtype=cd)
+        one = K.rcg_norm_kernel(L, cols[b], psi[b], c_old[b], v_old[b], compute_dtype=cd)
         if float(one) != float(norms[b]):
             raise AssertionError(f"{label} rcg_norm_batch replicate {b}: not K1's bits")
-    scales = [_row_abs_sum(torch, K, L, cols[b], float(c_new[b]), v_new[b], cd) for b in range(B)]
+    scales = [_row_abs_sum(torch, K, L, cols[b], c_new[b], v_new[b], cd) for b in range(B)]
     for mode, r_old, r_old_w in (("delta", rows, rows_w), ("absolute", None, None)):
         col, s = KB.rcg_update_batch_kernel(L, countsT, r_old, c_new, v_new)
         col_w, s_w = KB.rcg_update_batch_plain(L, countsT, r_old_w, c_new, v_new)
@@ -283,9 +307,8 @@ def _check_batch(torch, K, KB, L, binputs, label):
             raise AssertionError(f"{label} rcg_update_batch {mode}: the done mask moved a live "
                                  "replicate or left a done one")
         for b in range(B):
-            old = (None, None) if r_old is None else (float(c_old[b]), v_old[b])
-            c1, s1 = K.rcg_update_kernel(L, cols[b], *old, float(c_new[b]), v_new[b],
-                                         compute_dtype=cd)
+            old = (None, None) if r_old is None else (c_old[b], v_old[b])
+            c1, s1 = K.rcg_update_kernel(L, cols[b], *old, c_new[b], v_new[b], compute_dtype=cd)
             if not (torch.equal(c1, col[b]) and float(s1) == float(s[b])):
                 raise AssertionError(f"{label} rcg_update_batch {mode} replicate {b}: "
                                      "not K2's bits")
@@ -296,7 +319,8 @@ def _check_batch(torch, K, KB, L, binputs, label):
 
 def _check_instantiation(torch, K, inputs, cd, label):
     """K1, K2 delta and K2 absolute against their plain versions; reruns
-    bit-identical.  Returns {kernel: max abs error}."""
+    bit-identical; zeros with the done flag set.  Returns {kernel: max abs
+    error}."""
     L, counts, psi, c_old, v_old, c_new, v_new = inputs
     rtol = 1e-5 if cd == torch.float32 else 1e-12
     kw = dict(compute_dtype=cd)
@@ -330,6 +354,13 @@ def _check_instantiation(torch, K, inputs, cd, label):
         if not (torch.equal(col, col2) and torch.equal(s, s2)):
             raise AssertionError(f"{label} rcg_update {mode}: rerun differs")
         errs["rcg_update"] = max(errs.get("rcg_update", 0.0), col_err, gap)
+    flag = torch.ones((), dtype=torch.bool, device=L.device)
+    done = [K.rcg_norm_kernel(L, counts, psi, c_old, v_old, done=flag, **kw)]
+    for c_o, v_o in ((c_old, v_old), (None, None)):
+        done += K.rcg_update_kernel(L, counts, c_o, v_o, c_new, v_new, done=flag, **kw)
+    if any(bool(o.any()) for o in done):
+        raise AssertionError(f"{label} rcg_norm / rcg_update: a pass with its done flag set "
+                             "returned nonzeros")
     return errs
 
 
@@ -365,6 +396,34 @@ def _time_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(torch, fn, reps):
+    """ms a call of fn takes on the card alone: the stream is held busy
+    (torch.cuda._sleep, ~50 ms) while the host enqueues `reps` calls, so
+    the events time them back to back rather than at the host's pace."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _done_pass(torch, label, live_ms, call):
+    """Time a pass with its done flag set, on the card alone and at the
+    host's pace, and hold it under DONE_SHARE of the live pass."""
+    ms, host_ms = _device_ms(torch, call, 20), _time_ms(torch, call, 20)
+    share = ms / live_ms
+    _say(f"  {label} with its done flag set: {ms:.4f} ms on the card, {share:.4f} of the live "
+         f"pass (bar {DONE_SHARE}); {host_ms:.4f} ms a call at the host's pace")
+    if not share < DONE_SHARE:
+        raise AssertionError(f"{label}: a done pass takes {share:.4f} of a live one")
 
 
 def bound_ms(name, E, G, lsize, csize, exp_instr, B=1):
@@ -412,6 +471,45 @@ def _busy_share(torch, fn, what="32 float32 iterations"):
          f"{device_s:.4f} s, busy share {device_s / wall:.4f}, idle share "
          f"{1 - device_s / wall:.4f}; top: " + ", ".join(
              f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+
+
+def _beside_parent(key, iters, objective, label):
+    """Print a fit's iterations and objective beside the parent tree's
+    (PARENT); fail when the iterations differ or the objective is off by
+    more than rtol 1e-12."""
+    p_it, p_obj = PARENT[key]
+    same = "not recorded" if p_obj is None else f"equal to the bit: {objective == p_obj}"
+    _say(f"  {label}: {iters} iterations, objective {objective!r}; the parent's {p_it}, "
+         f"{p_obj!r}; {same}")
+    if iters != p_it or (p_obj is not None and not abs(objective - p_obj) <= 1e-12 * abs(p_obj)):
+        raise AssertionError(f"{label} left the parent's trajectory")
+
+
+def _live_and_skipped(launches, skipped):
+    """'N (L live, S skipped)': S of N launches came from steps of a state
+    already done, which skip every row."""
+    return f"{launches} ({launches - skipped} live, {skipped} skipped)"
+
+
+def _chunk_without_reads(torch, label, run, steps=64):
+    """Enqueue one chunk (run() returns its state) with every synchronizing
+    CUDA call an error (torch.cuda.set_sync_debug_mode), then wait for it:
+    no read of the device inside the chunk.  Prints the host's enqueue
+    seconds and the ms a step."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t
+    _say(f"  one {steps}-step chunk, {label}, with every device read an error: enqueued in "
+         f"{enqueue:.4f} s, done in {total:.4f} s, {total * 1e3 / steps:.4f} ms a step, "
+         f"state at iteration {int(st.it)}")
+    return st
 
 
 def phase_device(torch):
@@ -501,6 +599,12 @@ def phase_kernels(torch, exp_instr):
                                                            v_new, **kw), 3),
             ),
         }
+        flag = torch.ones((), dtype=torch.bool, device=L.device)
+        _done_pass(torch, f"rcg_norm {suffix}", times["rcg_norm"][0], lambda: K.rcg_norm_kernel(
+            L, counts, psi, c_old, v_old, done=flag, **kw))
+        _done_pass(torch, f"rcg_update {suffix}", times["rcg_update"][0],
+                   lambda: K.rcg_update_kernel(L, counts, c_old, v_old, c_new, v_new, done=flag,
+                                               **kw))
         csize = torch.empty((), dtype=cd).element_size()
         bounds = {name: bound_ms(name, E, G, L.element_size(), csize, exp_instr,
                                  8 if "batch" in name else 1)
@@ -517,6 +621,8 @@ def phase_kernels(torch, exp_instr):
             errs["em_step"] = _check_em(torch, KE, L, em_in, f"E={E} G={G} {suffix}")
             times["em_step"] = (_time_ms(torch, lambda: KE.em_step_kernel(L, *em_in), 10),
                                 _time_ms(torch, lambda: KE.em_step_plain(L, *em_in), 3))
+            _done_pass(torch, f"em_step {suffix}", times["em_step"][0],
+                       lambda: KE.em_step_kernel(L, *em_in, done=flag))
             B = 8
             b_in = _batch_inputs(torch, E, G, B, ld, 8)
             countsT, psi, c_old, v_old, c_new, v_new = b_in
@@ -771,7 +877,8 @@ def _community():
 
 def phase_full(torch, lik, build_s):
     _say(f"== phase 5: main path at E={E_FULL} G={G_FULL}")
-    from msweep_tpu_torch.inference import fit_result, pack_problem
+    from msweep_tpu_torch.inference import fit_rcg_result, fit_result, pack_problem
+    from msweep_tpu_torch.inference import rcg as R
     from msweep_tpu_torch.ops import rcg_kernels as K
 
     dev = torch.device("cuda")
@@ -807,13 +914,26 @@ def phase_full(torch, lik, build_s):
          f"{res.n_iters - n_f32 - n_blind} float64 polish), {res.n_iters / fit_s:.3f} it/s, "
          f"peak device memory {peak / 2**30:.3f} GiB, launches {launches}")
     _say(f"  K1/K2 launches by instantiation (matrix_compute): {by_suffix}")
+    # Each step of a chunk launches K1 and K2 once; a step prints its
+    # history line when its state was live.
+    k1, k2 = launches["rcg_norm_kernel"], launches["rcg_update_kernel"]
+    skipped = k1 - len(re.findall(r"iter \d+  bound", log))
+    _say(f"  launches: K1 {_live_and_skipped(k1, skipped)}, K2 {_live_and_skipped(k2, skipped)}")
+    _beside_parent("rcg", res.n_iters, res.objective, "the fit")
     if launches["rcg_norm_kernel"] == 0 or launches["rcg_update_kernel"] == 0:
         raise AssertionError(f"the main path did not launch both kernels: {launches}")
     if launches["rcg_norm_plain"] or launches["rcg_update_plain"]:
         raise AssertionError(f"the main path ran a plain version: {launches}")
     if theta32.shape != (G_FULL,) or not np.isfinite(theta32).all() or abs(theta32.sum() - 1) > 1e-6:
         raise AssertionError(f"theta is not a distribution: sum {theta32.sum()!r}")
-    _busy_share(torch, lambda: fit_result(p32, "rcgcpu", tol=-1.0, max_iters=32))
+    _busy_share(torch, lambda: fit_rcg_result(p32, tol=-1.0, max_iters=32, chunk=32),
+                "one chunk of 32 float32 iterations")
+    st = R._rcg_init_implicit(p32)
+    for label, cd, tau in (("float32", torch.float32, None),
+                           ("float32 blind (tau 1.0)", torch.float32, 1.0),
+                           ("float32 rows in float64", torch.float64, None)):
+        st = _chunk_without_reads(torch, label, lambda: R._rcg_chunk(
+            st, p32, length=64, tol=1e-6, compute_dtype=cd, max_it=5000, blind_tau=tau)[0])
     iters, objective = res.n_iters, res.objective
     del p32, res
     torch.cuda.empty_cache()
@@ -867,7 +987,7 @@ def _em_deltas(log: str, tol: float) -> None:
 def phase_em(torch, lik):
     _say(f"== phase 6: EM (emgpu) at E={E_FULL} G={G_FULL}")
     from msweep_tpu_torch.inference import em as E_
-    from msweep_tpu_torch.inference import fit_result, pack_problem
+    from msweep_tpu_torch.inference import fit_em_result, fit_result, pack_problem
     from msweep_tpu_torch.ops import em_kernels as KE
 
     dev = torch.device("cuda")
@@ -888,6 +1008,12 @@ def phase_em(torch, lik):
          f"{res.n_iters / fit_s:.3f} it/s, peak device memory {peak / 2**30:.3f} GiB, "
          f"launches {launches}")
     _em_deltas(buf.getvalue(), tol=1e-6)
+    # K5 runs once for the init, once a step of a chunk and once for the
+    # pseudocounts; a step prints its history line when its state was live.
+    k5 = launches["em_step_kernel"]
+    skipped = k5 - 2 - len(re.findall(r"iter \d+  objective", buf.getvalue()))
+    _say(f"  launches: K5 {_live_and_skipped(k5, skipped)}")
+    _beside_parent("em", res.n_iters, res.objective, "the fit")
     if launches["em_step_kernel"] == 0 or launches["em_step_plain"]:
         raise AssertionError(f"EM did not run on K5 alone: {launches}")
     if theta.shape != (G_FULL,) or not np.isfinite(theta).all() or abs(theta.sum() - 1) > 1e-9:
@@ -899,8 +1025,12 @@ def phase_em(torch, lik):
     _say(f"  K5 float64 {k5_ms:.4f} ms a pass (CUDA events) against {it_ms:.4f} ms an EM "
          f"iteration (host clock over the fit): {it_ms - k5_ms:.4f} ms of host and small ops")
     del em_in
-    _busy_share(torch, lambda: fit_result(p64, "emgpu", tol=-1.0, max_iters=32),
-                "32 float64 EM iterations")
+    _busy_share(torch, lambda: fit_em_result(p64, tol=-1.0, max_iters=32, chunk=32),
+                "one chunk of 32 float64 EM iterations")
+    shard_counts, am1 = [n for _, n in p64.shards], p64.alpha - 1.0
+    st = E_._em_init(p64, shard_counts, am1)
+    _chunk_without_reads(torch, "EM float64", lambda: E_._em_chunk(
+        st, p64, shard_counts, am1, length=64, tol=1e-6, max_it=5000)[0])
 
     for p, bar in ((p64, 1e-10), (None, 1e-5)):
         if p is None:
@@ -1010,6 +1140,11 @@ def phase_prof(torch):
     if not all(launches[k] > 0 for k in needed) or any(
             v for k, v in launches.items() if k.endswith("_plain")):
         raise AssertionError(f"the profiler did not run on the kernels alone: {launches}")
+    row_ms = {k: float(ln[len(ROW_LABELS[k]):].split()[0]) for k in ("norm", "update", "full")
+              for ln in lines if ln.startswith(ROW_LABELS[k])}
+    _say(f"  full row {row_ms['full']:.4f} ms an iteration against K1 + K2 "
+         f"{row_ms['norm'] + row_ms['update']:.4f} ms: "
+         f"{row_ms['full'] / (row_ms['norm'] + row_ms['update']):.4f} x")
     _say(f"  profiler subprocess {time.perf_counter() - t:.1f} s")
     return {k: launches[f"{k}_kernel"] for k in SWEEPS}
 
@@ -1303,6 +1438,7 @@ def phase_api(torch, lik, full, rep0):
          f"max |mixture_components (float64) - phase 5 theta| {dth:.3e} (bar 5e-5)")
     if it != full["iters"] or obj != full["objective"]:
         raise AssertionError("fit(p32) took another trajectory than phase 5's fit_result")
+    _beside_parent("rcg", it, obj, "fit(p32, \"rcgcpu\")")
     if tuple(gamma.shape) != (E_FULL, G_FULL) or gamma.device.type != "cuda" or not dth <= 5e-5:
         raise AssertionError("fit(p32)'s gamma is not phase 5's fit on the card")
     del gamma
@@ -1368,6 +1504,7 @@ def phase_api(torch, lik, full, rep0):
     if not (it1 == res.n_iters == it3 == 64 and obj1 == res.objective == obj3 and same
             and same3):
         raise AssertionError("fit_em, fit_em_result and fit(emgpu) differ")
+    _beside_parent("em64", it1, obj1, "fit_em(p64, 64 iterations)")
     if not row_err <= 1e-12 or not dth <= 1e-10:
         raise AssertionError("fit_em's gamma is not normalized, or not fit_em_result's theta")
     if em_launches["em_step_kernel"] == 0 or em_launches["em_step_plain"]:

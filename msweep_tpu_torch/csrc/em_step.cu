@@ -49,6 +49,10 @@
 // No atomics: the second stage sums the partials in CTA order, so a rerun
 // gives the same bits.  Padding: NEG cells (and NEG + NEG = -2e8 where
 // theta = 0, finite in float32) get weight exactly 0; count-0 rows add 0.
+// The done flag comes by device pointer: when *done is set every CTA
+// writes zeros (its rows of lse, its partials) and returns without reading
+// logL, so a converged state inside a chunk of inference/em.py costs
+// launches, not passes.
 // Left for later work: prefetching the warp's next row, and one read of
 // logL for B bootstrap replicates.
 #include "rcg_common.cuh"
@@ -67,8 +71,9 @@ constexpr int EM_CTAS = ONE_CHUNK ? 3 : 2;
 template <typename LT, typename CT, bool ONE_CHUNK>
 __global__ void __launch_bounds__(THREADS, EM_CTAS<ONE_CHUNK>)
 em_step_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
-               const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta, int64_t E,
-               int64_t G, bool vec, int64_t rows_per_cta, int tile, int64_t slab,
+               const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
+               const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
+               int64_t rows_per_cta, int tile, int64_t slab,
                CT* __restrict__ lse_out, double* __restrict__ part_scalar,
                double* __restrict__ part_cols) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -80,6 +85,11 @@ em_step_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
   cta_rows(E, rows_per_cta, lo, hi);
   double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
   for (int64_t g = threadIdx.x; g < G; g += THREADS) cols[g] = 0.0;
+  if (done != nullptr && *done) {  // the same on every thread of the CTA
+    for (int64_t e = lo + threadIdx.x; e < hi; e += THREADS) lse_out[e] = 0;
+    if (threadIdx.x == 0) part_scalar[blockIdx.x] = 0.0;
+    return;
+  }
   __syncthreads();
   LT L[NPL];
   CT w[NPL];
@@ -195,7 +205,8 @@ static cudaError_t em_plan(int64_t G, const void*& kernel, int& tile, int64_t& s
 
 template <typename LT, typename CT>
 static int launch_em_step(const void* logL, const void* counts, const void* lse_prev,
-                          const void* logtheta, int64_t E, int64_t G, int64_t rows_per_cta,
+                          const void* logtheta, const void* done, int64_t E, int64_t G,
+                          int64_t rows_per_cta,
                           int64_t n_cta, void* lse_out, void* part_scalar, void* part_cols,
                           void* out_scalar, void* out_cols, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -206,7 +217,7 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
   cudaError_t err = em_plan<LT, CT>(G, kernel, tile, slab, smem);
   if (err != cudaSuccess) return (int)err;
   bool vec = vector_rows(logL, G);
-  void* args[] = {&logL, &counts, &lse_prev, &logtheta, &E, &G, &vec, &rows_per_cta,
+  void* args[] = {&logL, &counts, &lse_prev, &logtheta, &done, &E, &G, &vec, &rows_per_cta,
                   &tile, &slab, &lse_out, &part_scalar, &part_cols};
   err = cudaLaunchKernel(kernel, dim3((unsigned)n_cta), dim3(THREADS), args, smem, s);
   if (err != cudaSuccess) return (int)err;
@@ -247,18 +258,19 @@ static int info_em_step(int64_t G, int* out) {
 
 // Plain C entry points, one per instantiation (matrix type _ compute type).
 // counts is (E,) in the matrix type; lse_prev, lse_out (E,) and logtheta
-// (G,) in the compute type.  part_scalar is scratch of n_cta doubles,
+// (G,) in the compute type; done is one bool or null (never done).
+// part_scalar is scratch of n_cta doubles,
 // part_cols of n_cta * G; out_scalar is one double (ddot), out_cols G
 // doubles (colsum); all on the device.  em_step_info_* fills five ints
 // (rcg::info_em_step).  Both return a CUDA error.
 #define EM_STEP_ENTRY(NAME, LT, CT)                                                          \
   extern "C" int NAME(const void* logL, const void* counts, const void* lse_prev,            \
-                      const void* logtheta, int64_t E, int64_t G, int64_t rows_per_cta,      \
-                      int64_t n_cta, void* lse_out, void* part_scalar, void* part_cols,      \
-                      void* out_scalar, void* out_cols, void* stream) {                      \
-    return rcg::launch_em_step<LT, CT>(logL, counts, lse_prev, logtheta, E, G, rows_per_cta, \
-                                       n_cta, lse_out, part_scalar, part_cols, out_scalar,   \
-                                       out_cols, stream);                                    \
+                      const void* logtheta, const void* done, int64_t E, int64_t G,          \
+                      int64_t rows_per_cta, int64_t n_cta, void* lse_out, void* part_scalar, \
+                      void* part_cols, void* out_scalar, void* out_cols, void* stream) {     \
+    return rcg::launch_em_step<LT, CT>(logL, counts, lse_prev, logtheta, done, E, G,         \
+                                       rows_per_cta, n_cta, lse_out, part_scalar, part_cols, \
+                                       out_scalar, out_cols, stream);                        \
   }                                                                                          \
   extern "C" int NAME##_info(int64_t G, int* out) { return rcg::info_em_step<LT, CT>(G, out); }
 

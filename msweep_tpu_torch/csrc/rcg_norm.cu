@@ -24,6 +24,12 @@
 // w * s^2 term, and holds psi and v in registers across all the CTA's rows
 // (rcg_common.cuh norm_row).  Left for later work: TMA bulk loads and
 // prefetching the warp's next row while it computes this one.
+//
+// c and the done flag come by device pointer, so an iteration is enqueued
+// with no host read (inference/rcg.py runs a chunk of them that way).  When
+// *done is set every CTA writes a zero partial and returns without reading
+// logL: a state that has converged inside a chunk costs launches, not
+// passes.
 #include "rcg_common.cuh"
 
 namespace rcg {
@@ -31,9 +37,15 @@ namespace rcg {
 template <typename LT, typename CT>
 __global__ void __launch_bounds__(THREADS, MinCtas<CT>::value)
 rcg_norm_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
-                const CT* __restrict__ psi, CT c, const CT* __restrict__ v, int64_t E,
-                int64_t G, bool vec, int64_t rows_per_cta, double* __restrict__ part) {
+                const CT* __restrict__ psi, const CT* __restrict__ c_ptr,
+                const CT* __restrict__ v, const bool* __restrict__ done, int64_t E, int64_t G,
+                bool vec, int64_t rows_per_cta, double* __restrict__ part) {
+  if (done != nullptr && *done) {  // the same on every thread of the CTA
+    if (threadIdx.x == 0) part[blockIdx.x] = 0.0;
+    return;
+  }
   __shared__ CT rowres[TILE_ROWS];
+  const CT c = *c_ptr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nch = (int)((G + CHUNK - 1) / CHUNK);
   int64_t lo, hi;
@@ -62,13 +74,14 @@ rcg_norm_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
 }
 
 template <typename LT, typename CT>
-static int launch_norm(const void* logL, const void* counts, const void* psi, CT c,
-                       const void* v, int64_t E, int64_t G, int64_t rows_per_cta,
-                       int64_t n_cta, void* part, void* out, void* stream) {
+static int launch_norm(const void* logL, const void* counts, const void* psi, const void* c,
+                       const void* v, const void* done, int64_t E, int64_t G,
+                       int64_t rows_per_cta, int64_t n_cta, void* part, void* out,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   rcg_norm_kernel<LT, CT><<<(unsigned)n_cta, THREADS, 0, s>>>(
-      (const LT*)logL, (const LT*)counts, (const CT*)psi, c, (const CT*)v, E, G,
-      vector_rows(logL, G), rows_per_cta, (double*)part);
+      (const LT*)logL, (const LT*)counts, (const CT*)psi, (const CT*)c, (const CT*)v,
+      (const bool*)done, E, G, vector_rows(logL, G), rows_per_cta, (double*)part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   rcg_reduce_scalar<<<1, 32, 0, s>>>((const double*)part, n_cta, (double*)out);
@@ -78,13 +91,15 @@ static int launch_norm(const void* logL, const void* counts, const void* psi, CT
 }  // namespace rcg
 
 // Plain C entry points, one per instantiation (matrix type _ compute type).
-// part is scratch of n_cta doubles, out one double; both on the device.
-#define RCG_NORM_ENTRY(NAME, LT, CT)                                                    \
-  extern "C" int NAME(const void* logL, const void* counts, const void* psi, CT c,    \
-                      const void* v, int64_t E, int64_t G, int64_t rows_per_cta,      \
-                      int64_t n_cta, void* part, void* out, void* stream) {           \
-    return rcg::launch_norm<LT, CT>(logL, counts, psi, c, v, E, G, rows_per_cta,     \
-                                    n_cta, part, out, stream);                       \
+// c is one scalar in the compute type, done one bool or null (never done);
+// part is scratch of n_cta doubles, out one double; all on the device.
+#define RCG_NORM_ENTRY(NAME, LT, CT)                                                       \
+  extern "C" int NAME(const void* logL, const void* counts, const void* psi, const void* c, \
+                      const void* v, const void* done, int64_t E, int64_t G,               \
+                      int64_t rows_per_cta, int64_t n_cta, void* part, void* out,          \
+                      void* stream) {                                                      \
+    return rcg::launch_norm<LT, CT>(logL, counts, psi, c, v, done, E, G, rows_per_cta,    \
+                                    n_cta, part, out, stream);                            \
   }
 
 RCG_NORM_ENTRY(rcg_norm_f32_f32, float, float)

@@ -37,16 +37,22 @@
 // into the partials itself, the same adds in the same order, so the same
 // bits.  No atomics.  Left for later work: TMA bulk loads,
 // prefetching the next row, and holding the column partials in registers.
+//
+// c_old, c_new and the done flag come by device pointer, as in K1
+// (rcg_norm.cu): when *done is set every CTA writes zero partials and
+// returns without reading logL.
 #include "rcg_common.cuh"
 
 namespace rcg {
 
 template <typename LT, typename CT>
 __global__ void __launch_bounds__(THREADS, MinCtas<CT>::value)
-rcg_update_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts, CT c_old,
-                  const CT* __restrict__ v_old, CT c_new, const CT* __restrict__ v_new,
-                  int absolute, int64_t E, int64_t G, bool vec, int64_t rows_per_cta,
-                  int tile, double* __restrict__ part_scalar, double* __restrict__ part_cols) {
+rcg_update_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
+                  const CT* __restrict__ c_old_ptr, const CT* __restrict__ v_old,
+                  const CT* __restrict__ c_new_ptr, const CT* __restrict__ v_new,
+                  const bool* __restrict__ done, int absolute, int64_t E, int64_t G, bool vec,
+                  int64_t rows_per_cta, int tile, double* __restrict__ part_scalar,
+                  double* __restrict__ part_cols) {
   extern __shared__ __align__(16) unsigned char smem[];
   CT* __restrict__ wt = reinterpret_cast<CT*>(smem);  // (tile, G) weights of the new softmax
   __shared__ CT rowres[TILE_ROWS];
@@ -60,7 +66,12 @@ rcg_update_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts, CT
   cta_rows(E, rows_per_cta, lo, hi);
   double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
   for (int64_t g = threadIdx.x; g < G; g += THREADS) cols[g] = 0.0;
+  if (done != nullptr && *done) {  // the same on every thread of the CTA
+    if (threadIdx.x == 0) part_scalar[blockIdx.x] = 0.0;
+    return;
+  }
   __syncthreads();
+  const CT c_new = *c_new_ptr, c_old = absolute ? c_new : *c_old_ptr;
   LT L[NPL];
   CT vn[NPL], vo[NPL], w[NPL];
   load_cols(v_new, 0, G, lane, vn);
@@ -99,8 +110,9 @@ rcg_update_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts, CT
 }
 
 template <typename LT, typename CT>
-static int launch_update(const void* logL, const void* counts, CT c_old, const void* v_old,
-                         CT c_new, const void* v_new, int absolute, int64_t E, int64_t G,
+static int launch_update(const void* logL, const void* counts, const void* c_old,
+                         const void* v_old, const void* c_new, const void* v_new,
+                         const void* done, int absolute, int64_t E, int64_t G,
                          int64_t rows_per_cta, int64_t n_cta, void* part_scalar,
                          void* part_cols, void* out_scalar, void* out_cols,
                          void* stream) {
@@ -114,8 +126,9 @@ static int launch_update(const void* logL, const void* counts, CT c_old, const v
   const int tile = wtile_rows(budget, row_bytes);
   const size_t smem = (size_t)tile * row_bytes;
   rcg_update_kernel<LT, CT><<<(unsigned)n_cta, THREADS, smem, s>>>(
-      (const LT*)logL, (const LT*)counts, c_old, (const CT*)v_old, c_new,
-      (const CT*)v_new, absolute, E, G, vector_rows(logL, G), rows_per_cta, tile,
+      (const LT*)logL, (const LT*)counts, (const CT*)c_old, (const CT*)v_old, (const CT*)c_new,
+      (const CT*)v_new, (const bool*)done, absolute, E, G, vector_rows(logL, G), rows_per_cta,
+      tile,
       (double*)part_scalar, (double*)part_cols);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -132,17 +145,20 @@ static int launch_update(const void* logL, const void* counts, CT c_old, const v
 }  // namespace rcg
 
 // Plain C entry points, one per instantiation (matrix type _ compute type).
-// part_scalar is scratch of n_cta doubles, part_cols of n_cta * G doubles;
-// out_scalar is one double, out_cols G doubles; all on the device.  In
-// absolute mode v_old and c_old are not read.  Returns a CUDA error.
-#define RCG_UPDATE_ENTRY(NAME, LT, CT)                                                   \
-  extern "C" int NAME(const void* logL, const void* counts, CT c_old, const void* v_old, \
-                      CT c_new, const void* v_new, int absolute, int64_t E, int64_t G,   \
-                      int64_t rows_per_cta, int64_t n_cta, void* part_scalar,            \
-                      void* part_cols, void* out_scalar, void* out_cols, void* stream) { \
-    return rcg::launch_update<LT, CT>(logL, counts, c_old, v_old, c_new, v_new,         \
-                                      absolute, E, G, rows_per_cta, n_cta, part_scalar, \
-                                      part_cols, out_scalar, out_cols, stream);         \
+// c_old and c_new are one scalar each in the compute type, done one bool or
+// null (never done); part_scalar is scratch of n_cta doubles, part_cols of
+// n_cta * G doubles; out_scalar is one double, out_cols G doubles; all on
+// the device.  In absolute mode v_old and c_old are not read.  Returns a
+// CUDA error.
+#define RCG_UPDATE_ENTRY(NAME, LT, CT)                                                     \
+  extern "C" int NAME(const void* logL, const void* counts, const void* c_old,             \
+                      const void* v_old, const void* c_new, const void* v_new,             \
+                      const void* done, int absolute, int64_t E, int64_t G,                \
+                      int64_t rows_per_cta, int64_t n_cta, void* part_scalar,              \
+                      void* part_cols, void* out_scalar, void* out_cols, void* stream) {   \
+    return rcg::launch_update<LT, CT>(logL, counts, c_old, v_old, c_new, v_new, done,     \
+                                      absolute, E, G, rows_per_cta, n_cta, part_scalar,   \
+                                      part_cols, out_scalar, out_cols, stream);           \
   }
 
 RCG_UPDATE_ENTRY(rcg_update_f32_f32, float, float)

@@ -10,12 +10,17 @@ tolerances far below float32 resolution of the total objective.  The
 check therefore fires one iteration after a naive two-pass formulation,
 with the same delta sequence.
 
-Numbers: theta and the M-step are float64 on logL's device; lse is kept in
-logL's dtype; the scalars (prior, objective, delta) are Python floats, so
-each iteration reads two float64 (ddot and the prior) back from the device
-in one transfer.  The init is one K5 pass too (its ddot against lse_prev = 0
-is the data term of J), so on a CUDA device every pass over logL of an
-iteration is a kernel launch.
+Numbers: the state lives on logL's device: theta, the M-step and the
+scalars (prior, objective, delta) in float64, lse in logL's dtype, the
+iteration count in int64 and `done` as a bool.  The step is all device
+operations (the first step's and the convergence test's branches are
+torch.where, as in msweep_tpu/inference/em.py:144-167), and K5 takes the
+done flag by pointer, so a chunk of iterations is enqueued with no host
+read: a state that is done passes through the rest of its chunk unchanged
+(the JAX package's lax.cond freeze) and K5 skips its rows for it; the host
+reads `done` once per chunk.  The init is one K5 pass too (its ddot
+against lse_prev = 0 is the data term of J), so on a CUDA device every
+pass over logL of an iteration is a kernel launch.
 
 EC-axis sharding (inference/pack.py): each shard runs K5 on its rows and
 keeps its rows' lse; colsum and ddot are reduced across shards and
@@ -46,13 +51,16 @@ F64 = torch.float64
 
 @dataclass(frozen=True)
 class EMState:
+    """Every field is a tensor on logL's device (lse on each shard's), the
+    scalars 0-d."""
+
     theta: torch.Tensor  # (G,) float64
     lse: tuple  # per shard, (E_s,) in logL's dtype: row logsumexp at the PREVIOUS theta
-    prior: float  # sum (alpha - 1) log theta at the previous theta
-    objective: float  # running
-    delta: float  # last objective change
-    it: int
-    done: bool
+    prior: torch.Tensor  # float64 sum (alpha - 1) log theta at the previous theta
+    objective: torch.Tensor  # float64, running
+    delta: torch.Tensor  # float64 last objective change
+    it: torch.Tensor  # int64
+    done: torch.Tensor  # bool
 
 
 def em_state_from_numpy(fields: Mapping[str, Any], device) -> EMState:
@@ -60,11 +68,14 @@ def em_state_from_numpy(fields: Mapping[str, Any], device) -> EMState:
     e.g. the fields of a JAX EMState converted with np.asarray (lse keeps
     its dtype).  Lets two implementations continue from the same
     mid-trajectory state."""
+    def scalar(name, dtype=F64):
+        return torch.tensor(np.asarray(fields[name]), dtype=dtype, device=device)
+
     return EMState(
         theta=torch.tensor(np.asarray(fields["theta"], dtype=np.float64), device=device),
         lse=(torch.tensor(np.asarray(fields["lse"]), device=device),),
-        prior=float(fields["prior"]), objective=float(fields["objective"]),
-        delta=float(fields["delta"]), it=int(fields["it"]), done=bool(fields["done"]),
+        prior=scalar("prior"), objective=scalar("objective"), delta=scalar("delta"),
+        it=scalar("it", torch.int64), done=scalar("done", torch.bool),
     )
 
 
@@ -78,11 +89,13 @@ def _prior(theta: torch.Tensor, am1: torch.Tensor, valid: torch.Tensor) -> torch
     return torch.where(valid, am1 * _safe_log(theta), 0.0).sum()
 
 
-def _pass(prob: DeviceProblem, counts: list, lse_prev, theta):
+def _pass(prob: DeviceProblem, counts: list, lse_prev, theta, done=None):
     """K5 on every shard at theta: (per-shard lse, colsum, ddot), colsum
-    and ddot reduced over every row."""
+    and ddot reduced over every row; all zeros where the 0-d bool `done`
+    is set (K5 then skips its rows)."""
     logtheta = _safe_log(theta)
-    outs = [em_step(L, c, lp, logtheta.to(L.device))
+    outs = [em_step(L, c, lp, logtheta.to(L.device),
+                    done=None if done is None else done.to(L.device))
             for (L, _), c, lp in zip(prob.shards, counts, lse_prev)]
     colsum, ddot = prob.reduce([o[1:] for o in outs])
     return tuple(o[0] for o in outs), colsum, ddot
@@ -95,54 +108,86 @@ def _em_init(prob: DeviceProblem, counts: list, am1) -> EMState:
     theta0 = valid.to(F64) / valid.sum().to(F64)
     zeros = [torch.zeros(L.shape[0], dtype=L.dtype, device=L.device) for L, _ in prob.shards]
     lse0, _, data0 = _pass(prob, counts, zeros, theta0)
+    zero = torch.zeros((), dtype=F64, device=theta0.device)
     return EMState(
-        theta=theta0, lse=lse0, prior=0.0,  # unused: step 1 recomputes it
-        objective=float(data0 + _prior(theta0, am1, valid)), delta=math.inf, it=0,
-        done=False,
+        theta=theta0, lse=lse0, prior=zero,  # unused: step 1 recomputes it
+        objective=data0 + _prior(theta0, am1, valid), delta=torch.full_like(zero, math.inf),
+        it=torch.zeros((), dtype=torch.int64, device=zero.device),
+        done=torch.zeros((), dtype=torch.bool, device=zero.device),
     )
 
 
 def _step(st: EMState, prob: DeviceProblem, counts: list, am1, *, tol: float) -> EMState:
     """One EM iteration with one pass over logL (deferred-delta scheme,
-    msweep_tpu/inference/em.py:112-169)."""
-    lse, colsum, ddot = _pass(prob, counts, st.lse, st.theta)
-    ddot, prior_now = torch.stack([ddot, _prior(st.theta, am1, prob.valid)]).tolist()
+    msweep_tpu/inference/em.py:112-169), all on the device: the scalar
+    operations are the host's float64 ones in the same order, so the
+    trajectory keeps its bits.  When st.done is set K5 skips its rows and
+    _em_chunk keeps st."""
+    lse, colsum, ddot = _pass(prob, counts, st.lse, st.theta, st.done)
+    prior_now = _prior(st.theta, am1, prob.valid)
     first = st.it == 0
     # The first step has no previous objective to compare against.
-    delta = math.inf if first else ddot + (prior_now - st.prior)
-    objective = st.objective if first else st.objective + delta
+    delta = torch.where(first, torch.full_like(ddot, math.inf), ddot + (prior_now - st.prior))
+    objective = torch.where(first, st.objective, st.objective + delta)
 
     raw = torch.where(prob.valid, torch.clamp_min(am1 + colsum, 0.0), 0.0)
-    done = tol >= 0 and not first and abs(delta) < tol
+    if tol >= 0:
+        done = ~first & (delta.abs() < tol)
+    else:
+        done = torch.zeros_like(first)
     return EMState(theta=raw / raw.sum(), lse=lse, prior=prior_now, objective=objective,
-                   delta=delta, it=st.it + 1, done=st.done or done)
+                   delta=delta, it=st.it + 1, done=st.done | done)
+
+
+def _freeze(old: EMState, new: EMState) -> EMState:
+    """`new`, or `old` where old.done is set, field by field (each shard's
+    lse on its device): the JAX package's lax.cond pass-through
+    (msweep_tpu/inference/em.py:223), with no host read."""
+    def keep(a, b):
+        return torch.where(old.done.to(b.device), a, b)
+
+    return EMState(
+        theta=keep(old.theta, new.theta),
+        lse=tuple(keep(a, b) for a, b in zip(old.lse, new.lse)),
+        prior=keep(old.prior, new.prior), objective=keep(old.objective, new.objective),
+        delta=keep(old.delta, new.delta), it=keep(old.it, new.it), done=keep(old.done, new.done),
+    )
 
 
 def _em_chunk(state: EMState, prob: DeviceProblem, counts: list, am1, *, length: int,
               tol: float, max_it: int | None = None):
-    """Up to `length` iterations; a converged state freezes, and a state
-    that reaches `max_it` iterations is marked done.  Returns (state,
-    history) with the objective after each executed step."""
+    """`length` iterations enqueued with no host read (the JAX package's
+    lax.scan chunk, msweep_tpu/inference/em.py:210-229): a state that is
+    done passes through the rest unchanged, and one that reaches `max_it`
+    iterations is marked done.  Returns (state, history) with JAX's
+    (active, objective) per step, as 0-d device tensors."""
     hist = []
     for _ in range(length):
-        if state.done:
-            break
-        state = _step(state, prob, counts, am1, tol=tol)
-        if max_it is not None and state.it >= max_it:
-            state = replace(state, done=True)
-        hist.append(state.objective)
+        new = _step(state, prob, counts, am1, tol=tol)
+        if max_it is not None:
+            new = replace(new, done=new.done | (new.it >= max_it))
+        active = ~state.done
+        state = _freeze(state, new)
+        hist.append((active, state.objective))
     return state, hist
 
 
 def _print_chunk_history(it0: int, hist) -> None:
-    for k, objective in enumerate(hist):
+    """The chunk's active steps (a prefix: a done state freezes), read
+    from the device in one transfer."""
+    if not hist:
+        return
+    rows = torch.stack([torch.stack([a.to(F64), o]) for a, o in hist]).tolist()
+    for k, (active, objective) in enumerate(rows):
+        if not active:
+            break
         print(f"  iter {it0 + k + 1}  objective {objective}", file=sys.stderr)
 
 
 def _run_em(problem: DeviceProblem, counts: list, *, tol: float, max_iters: int,
             verbose: bool, chunk: int) -> EMState:
-    """The EM loop with a host convergence check per chunk; counts holds
-    each shard's counts."""
+    """The EM loop, reading `done` once per chunk (never in bench mode,
+    tol < 0); counts holds each shard's counts."""
     am1 = problem.alpha - 1.0
     state = _em_init(problem, counts, am1)
     it = 0
@@ -152,7 +197,7 @@ def _run_em(problem: DeviceProblem, counts: list, *, tol: float, max_iters: int,
         if verbose:
             _print_chunk_history(it, hist)
         it += chunk
-        if tol >= 0 and state.done:
+        if tol >= 0 and bool(state.done):
             break
     return state
 
@@ -214,8 +259,8 @@ def fit_em_result(
     w = _em_state_pseudocounts(problem, state, c)
     return FitResult(
         theta=w / problem.row_sum(c),
-        n_iters=state.it,
-        objective=state.objective,
+        n_iters=int(state.it),
+        objective=float(state.objective),
         pseudocounts=w,
         _gamma_fn=lambda: problem.cat([_em_final(L, state.theta.to(L.device))
                                        for L, _ in problem.shards]),
@@ -246,6 +291,6 @@ def fit_em_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
         _em_state_pseudocounts(problem, st, c) / problem.row_sum(c)
         for st, c in zip(states, batch)
     ])
-    iters = torch.tensor([st.it for st in states])
-    objective = torch.tensor([st.objective for st in states], dtype=F64)
+    iters = torch.tensor([int(st.it) for st in states])
+    objective = torch.tensor([float(st.objective) for st in states], dtype=F64)
     return theta, iters, objective

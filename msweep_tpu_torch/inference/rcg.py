@@ -13,12 +13,16 @@ same affine recursion:
 A step that lowers the ELBO is reverted and the momentum reset (the next
 step is then the plain VB update, which is monotone).
 
-Numbers: the O(G) vectors live on logL's device in float64.  The scalars
-(c, e, the norm, the bound, the last delta) are Python floats, which are
-float64: the kernels take c by value, and the accept/revert decision is a
-host branch, so each iteration reads two float64 scalars back from the
-device.  Sums across rows are float64 in every pass, also when the matrix
-and the row sums are float32.
+Numbers: the whole state lives on logL's device, the O(G) vectors and the
+scalars (c, e, the norm, the bound, the last delta) in float64, the
+iteration count in int64 and the done / reset flags as bools, as the
+batched state below.  K1/K2 take c and the done flag by pointer, and
+accept/revert is a torch.where on each field, so a chunk of iterations is
+enqueued with no host read, the JAX package's design point 2
+(msweep_tpu/inference/rcg.py:55-64): within a chunk a state that is done
+passes through unchanged (JAX's lax.cond freeze) and K1/K2 skip their rows
+for it, and the host reads `done` once per chunk.  Sums across rows are
+float64 in every pass, also when the matrix and the row sums are float32.
 
 Precision escalation: a float32 fit stops either at the true tolerance or
 at its numerical floor, where per-iteration ELBO changes drop below the
@@ -27,12 +31,15 @@ with float32 passes in "blind" mode (revert only on decreases beyond the
 measured noise, no self-stopping), supervised every `chunk` iterations by
 one exact float64 bound pass; then a float64 polish applies the true
 per-iteration criterion.  A supervision window that lowers the bound is
-rolled back and the fit continues in float64.
+rolled back and the fit continues in float64.  The tail reads the device
+where the JAX package does: the iteration count, the last delta and the
+re-anchored bound once at the floor, the count and the float64 bound once
+per window, `done` once per chunk of the polish.
 
 EC-axis sharding (inference/pack.py): every pass runs its kernel on each
 shard of the problem and DeviceProblem.reduce adds the float64 partials
-(and all-reduces them across processes), so the host reads the same
-scalars on every process and every branch agrees.
+(and all-reduces them across processes), so every process holds the same
+state and every host branch agrees.
 
 Bootstrap (fit_rcg_batch): B count vectors share one logL.  The batched
 state carries a leading (B,) axis on every field and lives on the device;
@@ -68,63 +75,83 @@ F64 = torch.float64
 @dataclass(frozen=True)
 class RCGImplicitState:
     """Optimizer state: gamma = rownorm(c * logL + v), direction
-    d = e * logL + f modulo row constants (which never matter for d)."""
+    d = e * logL + f modulo row constants (which never matter for d).
+    Every field is a tensor on logL's device, the scalars 0-d."""
 
-    c: float
+    c: torch.Tensor  # float64
     v: torch.Tensor  # (G,) float64
-    e: float
+    e: torch.Tensor  # float64
     f: torch.Tensor  # (G,) float64
     n_counts: torch.Tensor  # (G,) float64 Dirichlet posterior counts N
-    oldnorm: float  # metric norm of the last accepted step
-    bound: float  # ELBO, running
-    delta: float  # last accepted improvement
-    it: int  # iterations executed
-    done: bool
-    just_reset: bool  # momentum was reset by the last step
+    oldnorm: torch.Tensor  # float64 metric norm of the last accepted step
+    bound: torch.Tensor  # float64 ELBO, running
+    delta: torch.Tensor  # float64 last accepted improvement
+    it: torch.Tensor  # int64 iterations executed
+    done: torch.Tensor  # bool
+    just_reset: torch.Tensor  # bool: momentum was reset by the last step
+
+
+_FIELD_DTYPES = {"it": torch.int64, "done": torch.bool, "just_reset": torch.bool}  # else float64
+
+
+def _from_numpy(cls, fields: Mapping[str, Any], device):
+    return cls(**{
+        name: torch.tensor(np.asarray(fields[name]), dtype=_FIELD_DTYPES.get(name, F64),
+                           device=device)
+        for name in cls.__dataclass_fields__
+    })
 
 
 def state_from_numpy(fields: Mapping[str, Any], device) -> RCGImplicitState:
     """An RCGImplicitState from numpy values by field name, e.g. the
     fields of a JAX RCGImplicitState converted with np.asarray.  Lets two
     implementations continue from the same mid-trajectory state."""
-
-    def vec(x):
-        return torch.tensor(np.asarray(x, dtype=np.float64), device=device)
-
-    return RCGImplicitState(
-        c=float(fields["c"]), v=vec(fields["v"]), e=float(fields["e"]),
-        f=vec(fields["f"]), n_counts=vec(fields["n_counts"]),
-        oldnorm=float(fields["oldnorm"]), bound=float(fields["bound"]),
-        delta=float(fields["delta"]), it=int(fields["it"]),
-        done=bool(fields["done"]), just_reset=bool(fields["just_reset"]),
-    )
+    return _from_numpy(RCGImplicitState, fields, device)
 
 
-def _converged(tol: float, delta: float, decreased: bool, just_reset: bool) -> bool:
+def _freeze(old, new):
+    """`new`, or `old` where old.done is set, field by field: a state that
+    is done passes through a step unchanged (the JAX package's lax.cond
+    pass-through, msweep_tpu/inference/rcg.py:510-512), with no host read.
+    For RCGImplicitState and, per replicate, RCGBatchState."""
+    return type(old)(**{
+        name: _where_b(old.done, getattr(old, name), getattr(new, name))
+        for name in type(old).__dataclass_fields__
+    })
+
+
+def _converged(tol: float, delta: torch.Tensor, decreased: torch.Tensor,
+               just_reset: torch.Tensor) -> torch.Tensor:
     """An accepted step with 0 <= improvement < tol, or a pure VB step
     that still decreased (numerical floor).  tol < 0 never converges."""
     if tol < 0:
-        return False
-    return (not decreased and delta < tol) or (decreased and just_reset)
+        return torch.zeros_like(decreased)
+    return (~decreased & (delta < tol)) | (decreased & just_reset)
 
 
 def _bound_at(prob: DeviceProblem, state: RCGImplicitState, compute_dtype):
-    """(ELBO, N) at gamma = (state.c, state.v) from one K2 absolute pass."""
+    """(ELBO, N) at gamma = (state.c, state.v) from one K2 absolute pass,
+    both on the device."""
     data, colsum = prob.reduce([
-        rcg_bound_stats(L, n, state.c, state.v.to(L.device), compute_dtype=compute_dtype)
+        rcg_bound_stats(L, n, state.c.to(L.device), state.v.to(L.device),
+                        compute_dtype=compute_dtype)
         for L, n in prob.shards
     ])
     n = prob.alpha + colsum
-    return float(prob.bound_const + torch.lgamma(n).sum() + data), n
+    return prob.bound_const + torch.lgamma(n).sum() + data, n
 
 
 def _rcg_init_implicit(prob: DeviceProblem) -> RCGImplicitState:
     """(c, v) = (0, 0): gamma_0 uniform over real groups, with N_0 and the
     exact initial bound from one pass in the matrix's dtype."""
-    zeros = torch.zeros((prob.n_groups,), dtype=F64, device=prob.device)
+    dev = prob.device
+    zeros = torch.zeros((prob.n_groups,), dtype=F64, device=dev)
+    zero = torch.zeros((), dtype=F64, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
     st = RCGImplicitState(
-        c=0.0, v=zeros, e=0.0, f=zeros, n_counts=zeros, oldnorm=1.0, bound=0.0,
-        delta=math.inf, it=0, done=False, just_reset=False,
+        c=zero, v=zeros, e=zero, f=zeros, n_counts=zeros, oldnorm=torch.ones_like(zero),
+        bound=zero, delta=torch.full_like(zero, math.inf),
+        it=torch.zeros((), dtype=torch.int64, device=dev), done=no, just_reset=no,
     )
     bound0, n0 = _bound_at(prob, st, prob.dtype)
     return replace(st, n_counts=n0, bound=bound0)
@@ -132,21 +159,23 @@ def _rcg_init_implicit(prob: DeviceProblem) -> RCGImplicitState:
 
 def _step(st: RCGImplicitState, prob: DeviceProblem, *, tol: float, compute_dtype,
           blind_tau: float | None = None) -> RCGImplicitState:
-    """One implicit iteration: K1, the O(G) recursion, K2, accept/revert.
+    """One implicit iteration: K1, the O(G) recursion, K2, accept/revert,
+    all on the device.  The scalar operations are the host's float64
+    operations in the same order, one op each, so the trajectory keeps
+    its bits.  When st.done is set K1/K2 skip their rows (outputs 0) and
+    _rcg_chunk keeps st.
 
     `blind_tau` puts the step in blind mode for the escalation tail: it
     never declares convergence itself and reverts only on decreases larger
     than tau, the measured float32 noise scale."""
     psi = torch.special.digamma(st.n_counts)
     (newnorm,) = prob.reduce([
-        (rcg_norm(L, n, psi.to(L.device), st.c, st.v.to(L.device), compute_dtype=compute_dtype),)
+        (rcg_norm(L, n, psi.to(L.device), st.c.to(L.device), st.v.to(L.device),
+                  compute_dtype=compute_dtype, done=st.done.to(L.device)),)
         for L, n in prob.shards
     ])
-    newnorm = float(newnorm)
-    if st.just_reset or st.it == 0 or st.oldnorm <= 0:
-        beta = 0.0
-    else:
-        beta = newnorm / st.oldnorm
+    no_momentum = st.just_reset | (st.it == 0) | (st.oldnorm <= 0)
+    beta = torch.where(no_momentum, torch.zeros_like(newnorm), newnorm / st.oldnorm)
 
     e_new = (1.0 - st.c) + beta * st.e
     f_new = (psi - st.v) + beta * st.f
@@ -154,76 +183,91 @@ def _step(st: RCGImplicitState, prob: DeviceProblem, *, tol: float, compute_dtyp
     v_new = st.v + f_new
 
     colsum, elbo_delta = prob.reduce([
-        rcg_update(L, n, st.c, st.v.to(L.device), c_new, v_new.to(L.device),
-                   compute_dtype=compute_dtype)
+        rcg_update(L, n, st.c.to(L.device), st.v.to(L.device), c_new.to(L.device),
+                   v_new.to(L.device), compute_dtype=compute_dtype, done=st.done.to(L.device))
         for L, n in prob.shards
     ])
     n_new = prob.alpha + colsum
     dirichlet_delta = (torch.lgamma(n_new) - torch.lgamma(st.n_counts)).sum()
-    delta = float(elbo_delta + dirichlet_delta)
+    delta = elbo_delta + dirichlet_delta
 
     if blind_tau is not None:
         decreased = delta < -blind_tau
-        newly_done = False
+        newly_done = torch.zeros_like(decreased)
     else:
         decreased = delta < 0
         newly_done = _converged(tol, delta, decreased, st.just_reset)
 
     # On revert (e, f) keep stale values: just_reset forces beta = 0 on
     # the next step, so they are rewritten before being read.
-    if decreased:
-        return replace(st, oldnorm=1.0, it=st.it + 1, done=st.done or newly_done,
-                       just_reset=True)
+    def keep(old, new):
+        return torch.where(decreased, old, new)
+
     return RCGImplicitState(
-        c=c_new, v=v_new, e=e_new, f=f_new, n_counts=n_new, oldnorm=newnorm,
-        bound=st.bound + delta, delta=delta, it=st.it + 1,
-        done=st.done or newly_done, just_reset=False,
+        c=keep(st.c, c_new), v=keep(st.v, v_new), e=keep(st.e, e_new), f=keep(st.f, f_new),
+        n_counts=keep(st.n_counts, n_new), oldnorm=keep(torch.ones_like(newnorm), newnorm),
+        bound=keep(st.bound, st.bound + delta), delta=keep(st.delta, delta), it=st.it + 1,
+        done=st.done | newly_done, just_reset=decreased,
     )
 
 
 def _rcg_chunk(state: RCGImplicitState, prob: DeviceProblem, *, length: int, tol: float,
                compute_dtype, max_it: int | None = None, blind_tau: float | None = None):
-    """Up to `length` iterations; a converged state freezes, and a state
-    that reaches `max_it` iterations is marked done.  Returns (state,
-    history) with one (bound, just_reset) pair per executed step."""
+    """`length` iterations enqueued with no host read (the JAX package's
+    lax.scan chunk, msweep_tpu/inference/rcg.py:515-550): a state that is
+    done passes through the rest unchanged, and one that reaches `max_it`
+    iterations is marked done.  Returns (state, history) with JAX's
+    (active, bound, just_reset) per step, as 0-d device tensors."""
     hist = []
     for _ in range(length):
-        if state.done:
-            break
-        state = _step(state, prob, tol=tol, compute_dtype=compute_dtype, blind_tau=blind_tau)
-        if max_it is not None and state.it >= max_it:
-            state = replace(state, done=True)
-        hist.append((state.bound, state.just_reset))
+        new = _step(state, prob, tol=tol, compute_dtype=compute_dtype, blind_tau=blind_tau)
+        if max_it is not None:
+            new = replace(new, done=new.done | (new.it >= max_it))
+        active = ~state.done
+        state = _freeze(state, new)
+        hist.append((active, state.bound, state.just_reset))
     return state, hist
 
 
 def _print_chunk_history(it0: int, hist) -> None:
-    for k, (bound, reset) in enumerate(hist):
-        print(f"  iter {it0 + k + 1}  bound {bound}  (reset={reset})", file=sys.stderr)
+    """The chunk's active steps (a prefix: a done state freezes), read
+    from the device in one transfer."""
+    if not hist:
+        return
+    rows = torch.stack([torch.stack([a.to(F64), b, r.to(F64)]) for a, b, r in hist]).tolist()
+    for k, (active, bound, reset) in enumerate(rows):
+        if not active:
+            break
+        print(f"  iter {it0 + k + 1}  bound {bound}  (reset={bool(reset)})", file=sys.stderr)
 
 
 def _run_rcg(prob: DeviceProblem, *, tol: float, max_iters: int, verbose: bool,
              chunk: int, refine: bool | str = True) -> RCGImplicitState:
     """The optimizer loop in the matrix's dtype, then (float32 matrices,
     `refine`) the escalation past the float32 floor; refine="exact" takes
-    the float64 tail without blind windows."""
+    the float64 tail without blind windows.  The host reads `done` once per
+    chunk (none in bench mode, tol < 0) and the last delta once at the
+    escalation test."""
     state = _rcg_init_implicit(prob)
     it = 0
+    done = False
     while it < max_iters:
         state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
                                  compute_dtype=prob.dtype, max_it=max_iters)
         if verbose:
             _print_chunk_history(it, hist)
         it += chunk
-        if tol >= 0 and state.done:
-            break
+        if tol >= 0:
+            done = bool(state.done)
+            if done:
+                break
 
     if (
         refine
         and tol >= 0
         and prob.dtype == torch.float32
-        and state.done
-        and not (0 <= state.delta < tol)  # floor stop, not true tol
+        and done
+        and not (0 <= float(state.delta) < tol)  # floor stop, not true tol
     ):
         state, it = _escalate(state, prob, it=it, max_iters=max_iters, tol=tol,
                               chunk=chunk, verbose=verbose, exact=(refine == "exact"))
@@ -236,60 +280,68 @@ def _escalate(state: RCGImplicitState, prob: DeviceProblem, *, it: int, max_iter
     windows supervised by the exact float64 bound, then a float64 polish
     (or a float64 fallback after a rolled-back window).  `exact` skips the
     blind windows and steps in float64 from the re-anchored state."""
-    if verbose:
-        print(
-            f"  f32 numerical floor at iter {state.it} (last accepted delta "
-            f"{state.delta:.3e}); escalating "
-            f"({'exact-f64 tail' if exact else 'blind-f32 tail, f64 supervision'})",
-            file=sys.stderr,
-        )
     # Re-anchor in float64: the float32-era N carries ~1e-7 relative
     # rounding which, through lgamma at N ~ 1e4, injects O(1) spurious
     # deltas, enough to make the first honest step look like a decrease.
     bound0, n64 = _bound_at(prob, state, F64)
-    state = replace(state, n_counts=n64, bound=bound0, done=False, just_reset=True,
-                    oldnorm=1.0)
+    it_f, d0, bound0_f = torch.stack([state.it.to(F64), state.delta, bound0]).tolist()
+    state_it = int(it_f)
+    if verbose:
+        print(
+            f"  f32 numerical floor at iter {state_it} (last accepted delta "
+            f"{d0:.3e}); escalating "
+            f"({'exact-f64 tail' if exact else 'blind-f32 tail, f64 supervision'})",
+            file=sys.stderr,
+        )
+    dev = prob.device
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+    one = torch.ones((), dtype=F64, device=dev)
+    state = replace(state, n_counts=n64, bound=bound0, done=~yes, just_reset=yes, oldnorm=one)
 
     if not exact:
-        state, it = _blind_windows(state, prob, bound0, it=it, max_iters=max_iters, tol=tol,
-                                   chunk=chunk, verbose=verbose)
-        if state.done or it >= max_iters:
+        state, it = _blind_windows(state, prob, bound0_f, d0, state_it, it=it,
+                                   max_iters=max_iters, tol=tol, chunk=chunk, verbose=verbose)
+        if it >= max_iters or bool(state.done):
             return state, it
         # Float64 polish after blind convergence, or the full fallback
         # after a rollback.  Momentum restarts: the blind phase's noisy
         # direction costs iterations in the exact tail.
-        state = replace(state, just_reset=True, oldnorm=1.0)
+        state = replace(state, just_reset=yes, oldnorm=one)
     while it < max_iters:
         state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol, compute_dtype=F64,
                                  max_it=max_iters)
         if verbose:
             _print_chunk_history(it, hist)
         it += chunk
-        if state.done:
+        if bool(state.done):
             break
     return state, it
 
 
-def _blind_windows(state: RCGImplicitState, prob: DeviceProblem, bound0: float, *, it: int,
-                   max_iters: int, tol: float, chunk: int, verbose: bool):
+def _blind_windows(state: RCGImplicitState, prob: DeviceProblem, bound0: float, d0: float,
+                   state_it: int, *, it: int, max_iters: int, tol: float, chunk: int,
+                   verbose: bool):
     """Blind float32 windows of `chunk` steps, each checked by one exact
     float64 bound pass, until the supervised gain per step drops below
-    tol; a window that lowers the bound is rolled back."""
-    d0 = state.delta
+    tol; a window that lowers the bound is rolled back.  bound0, d0 and
+    state_it are the re-anchored bound, the last delta before the floor
+    and state.it, as read on the host."""
     tau = 4.0 * abs(d0) if math.isfinite(d0) else 0.0
     bound_prev = bound0
     while it < max_iters:
-        ckpt = state
+        ckpt, ckpt_it = state, state_it
         state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
                                  compute_dtype=prob.dtype, max_it=max_iters,
                                  blind_tau=tau)
         if verbose:
             _print_chunk_history(it, hist)
         it += chunk
-        steps = state.it - ckpt.it
+        state_it = int(state.it)
+        steps = state_it - ckpt_it
         if steps == 0:
             break  # max_it freeze
-        bound_now, n64 = _bound_at(prob, state, F64)
+        bound_t, n64 = _bound_at(prob, state, F64)
+        bound_now = float(bound_t)
         davg = (bound_now - bound_prev) / steps
         if bound_now < bound_prev:
             # the blind window went downhill: roll back, go exact
@@ -302,9 +354,10 @@ def _blind_windows(state: RCGImplicitState, prob: DeviceProblem, bound0: float, 
                     file=sys.stderr,
                 )
             break
-        state = replace(state, n_counts=n64, bound=bound_now, delta=davg)
+        state = replace(state, n_counts=n64, bound=bound_t,
+                        delta=torch.full_like(bound_t, davg))
         if verbose:
-            print(f"  iter {state.it}  f64 bound {bound_now}  (avg delta/iter {davg:.3e})",
+            print(f"  iter {state_it}  f64 bound {bound_now}  (avg delta/iter {davg:.3e})",
                   file=sys.stderr)
         if davg < tol:
             break  # blind phase done: the float64 polish follows
@@ -362,11 +415,12 @@ def fit_rcg_result(
                      verbose=bool(verbose), chunk=chunk, refine=refine)
     return FitResult(
         theta=_state_theta(state, problem),
-        n_iters=state.it,
-        objective=state.bound,
+        n_iters=int(state.it),
+        objective=float(state.bound),
         pseudocounts=state.n_counts - problem.alpha,
-        _gamma_fn=lambda: problem.cat([materialize_gamma(L, state.c, state.v.to(L.device))
-                                       for L, _ in problem.shards]),
+        _gamma_fn=lambda: problem.cat([
+            materialize_gamma(L, state.c.to(L.device), state.v.to(L.device))
+            for L, _ in problem.shards]),
     )
 
 
@@ -398,16 +452,13 @@ class RCGBatchState:
 def batch_state_from_numpy(fields: Mapping[str, Any], device) -> RCGBatchState:
     """An RCGBatchState from numpy values by field name, e.g. the fields of
     the JAX package's batched RCGImplicitState converted with np.asarray."""
-    dtypes = {"it": torch.int64, "done": torch.bool, "just_reset": torch.bool}
-    return RCGBatchState(**{
-        name: torch.tensor(np.asarray(fields[name]), dtype=dtypes.get(name, F64), device=device)
-        for name in RCGBatchState.__dataclass_fields__
-    })
+    return _from_numpy(RCGBatchState, fields, device)
 
 
 def _where_b(mask: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """Per replicate: old where mask (B,), else new; for (B,) and (B, G)."""
-    return torch.where(mask.view(-1, *([1] * (new.dim() - 1))), old, new)
+    """old where mask, else new, the mask's axes leading: a 0-d mask for
+    any field, a (B,) one per replicate for (B,) and (B, G)."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.dim() - mask.dim())), old, new)
 
 
 def _update_batch(prob: DeviceProblem, countsT: list, rows_old, c_new, v_new, done=None):
@@ -500,10 +551,7 @@ def _rcg_chunk_batch(state: RCGBatchState, prob: DeviceProblem, countsT: list, *
         new = _step_batch(state, prob, countsT, tol=tol)
         if max_it is not None:
             new = replace(new, done=new.done | (new.it >= max_it))
-        state = RCGBatchState(**{
-            name: _where_b(state.done, getattr(state, name), getattr(new, name))
-            for name in RCGBatchState.__dataclass_fields__
-        })
+        state = _freeze(state, new)
     return state
 
 

@@ -97,14 +97,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
 
-    for lt, ct in (("f32", "f32"), ("f32", "f64"), ("f64", "f64")):
-        scalar = ctypes.c_float if ct == "f32" else ctypes.c_double
-        # logL, counts, psi, c, v, E, G, rows_per_cta, n_cta, part, out, stream
-        sig(f"rcg_norm_{lt}_{ct}", _P, _P, _P, scalar, _P, _I64, _I64, _I64, _I64, _P, _P, _P)
-        # logL, counts, c_old, v_old, c_new, v_new, absolute, E, G,
+    for suffix in ("f32_f32", "f32_f64", "f64_f64"):
+        # logL, counts, psi, c, v, done, E, G, rows_per_cta, n_cta, part, out, stream
+        sig(f"rcg_norm_{suffix}", _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P)
+        # logL, counts, c_old, v_old, c_new, v_new, done, absolute, E, G,
         # rows_per_cta, n_cta, part_scalar, part_cols, out_scalar, out_cols, stream
-        sig(f"rcg_update_{lt}_{ct}", _P, _P, scalar, _P, scalar, _P, ctypes.c_int, _I64, _I64,
-            _I64, _I64, _P, _P, _P, _P, _P)
+        sig(f"rcg_update_{suffix}", _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64,
+            _I64, _P, _P, _P, _P, _P)
     for suffix in ("f32_f32", "f64_f64"):
         # logL, countsT, psi, c, v, done, E, G, B, rows_per_cta, n_cta, part,
         # rowterm, out, stream
@@ -117,10 +116,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         for name in ("rcg_norm_batch", "rcg_update_batch"):
             # G, out (4 ints)
             sig(f"{name}_{suffix}_info", _I64, _P)
-        # logL, counts, lse_prev, logtheta, E, G, rows_per_cta, n_cta, lse_out,
-        # part_scalar, part_cols, out_scalar, out_cols, stream
-        sig(f"em_step_{suffix}", _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P,
-            _P)
+        # logL, counts, lse_prev, logtheta, done, E, G, rows_per_cta, n_cta,
+        # lse_out, part_scalar, part_cols, out_scalar, out_cols, stream
+        sig(f"em_step_{suffix}", _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P,
+            _P, _P)
         # G, out (5 ints)
         sig(f"em_step_{suffix}_info", _I64, _P)
     for name in ("prof_read", "prof_exp", "prof_exp2"):

@@ -19,7 +19,10 @@ summed across rows in float64 and returned as float64.
 Dispatch on logL's device as in ops/rcg_kernels.py: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel
 (msweep_tpu_torch/csrc/em_step.cu) or raises.  Both count their launches
-in ``launches``.
+in ``launches``.  An optional 0-d bool tensor ``done``, read on the device,
+makes the pass return zeros (lse, colsum and ddot): the kernel then skips
+every row, the plain version masks its result, so a converged state inside
+a chunk of inference/em.py costs a launch, not a pass.
 """
 
 from __future__ import annotations
@@ -29,15 +32,15 @@ import functools
 
 import torch
 
-from .rcg_kernels import F64, _block_rows, _grid, _on_cpu, _raise_on
+from .rcg_kernels import F64, _block_rows, _flag, _grid, _on_cpu, _raise_on, _unless_done
 
 # matrix dtype (= compute dtype) -> suffix of the C entry points.
 INSTANTIATIONS = {torch.float32: "f32_f32", torch.float64: "f64_f64"}
 
 
-def em_step_plain(logL, counts, lse_prev, logtheta):
+def em_step_plain(logL, counts, lse_prev, logtheta, done=None):
     """Plain K5: (lse (E,) in logL's dtype, colsum (G,) float64, ddot
-    float64 0-d)."""
+    float64 0-d); zeros where `done` is set."""
     em_step_plain.launches += 1
     dt, dev = logL.dtype, logL.device
     E, G = logL.shape
@@ -56,7 +59,7 @@ def em_step_plain(logL, counts, lse_prev, logtheta):
         lse[lo:lo + rows] = row_lse
         colsum = colsum + ((cnt[:, None] / denom) * num).to(F64).sum(dim=0)
         ddot = ddot + (cnt * (row_lse - lse_prev[lo:lo + rows].to(dt))).to(F64).sum()
-    return lse, colsum, ddot
+    return _unless_done(done, lse, colsum, ddot)
 
 
 em_step_plain.launches = 0
@@ -95,7 +98,7 @@ def kernel_info(suffix: str, G: int, device_index: int) -> dict:
     return info
 
 
-def em_step_kernel(logL, counts, lse_prev, logtheta):
+def em_step_kernel(logL, counts, lse_prev, logtheta, done=None):
     """K5 on the card (msweep_tpu_torch/csrc/em_step.cu), on a grid of as
     many CTAs as the card holds at once."""
     from ._build import load
@@ -106,6 +109,7 @@ def em_step_kernel(logL, counts, lse_prev, logtheta):
     ctas = kernel_info(suffix, G, dev.index if dev.index is not None else
                        torch.cuda.current_device())["ctas_per_sm"]
     rows_per_cta, n_cta = _grid(E, dev, ctas_per_sm=ctas)
+    done, done_ptr = _flag(done, dev)
     lse = torch.empty((E,), dtype=logL.dtype, device=dev)
     part_s = torch.empty((n_cta,), dtype=F64, device=dev)
     part_c = torch.empty((n_cta, G), dtype=F64, device=dev)
@@ -115,8 +119,8 @@ def em_step_kernel(logL, counts, lse_prev, logtheta):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(load(), f"em_step_{suffix}")(
             logL.data_ptr(), counts.data_ptr(), lse_prev.data_ptr(), logtheta.data_ptr(),
-            E, G, rows_per_cta, n_cta, lse.data_ptr(), part_s.data_ptr(), part_c.data_ptr(),
-            out_s.data_ptr(), out_c.data_ptr(), stream,
+            done_ptr, E, G, rows_per_cta, n_cta, lse.data_ptr(), part_s.data_ptr(),
+            part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr(), stream,
         )
     _raise_on(rc, "em_step")
     em_step_kernel.launches += 1
@@ -126,10 +130,11 @@ def em_step_kernel(logL, counts, lse_prev, logtheta):
 em_step_kernel.launches = 0
 
 
-def em_step(logL, counts, lse_prev, logtheta):
+def em_step(logL, counts, lse_prev, logtheta, done=None):
     """One EM pass: (lse (E,), colsum (G,) float64, ddot float64 0-d).
     logL (E, G); counts (E,) in logL's dtype; lse_prev (E,) and logtheta
-    (G,) are rounded to logL's dtype."""
+    (G,) are rounded to logL's dtype; all zeros where the 0-d bool `done`
+    is set."""
     if _on_cpu(logL):
-        return em_step_plain(logL, counts, lse_prev, logtheta)
-    return em_step_kernel(logL, counts, lse_prev, logtheta)
+        return em_step_plain(logL, counts, lse_prev, logtheta, done)
+    return em_step_kernel(logL, counts, lse_prev, logtheta, done)

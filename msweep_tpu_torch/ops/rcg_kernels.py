@@ -22,6 +22,13 @@ version counts its launches in a ``launches`` attribute, so a run can show
 which one it went through; the kernel wrappers also count them by
 instantiation in ``by_suffix`` (e.g. ``{"f32_f32": 390, "f32_f64": 114, ...}``).
 
+The scalars c (K1) and c_old, c_new (K2) may be Python numbers or 0-d
+tensors; the passes round them to the compute dtype on the device and the
+kernels read them by pointer.  An optional 0-d bool tensor ``done``, read
+on the device too, makes a pass return zeros: the kernels then skip every
+row, the plain versions mask their result.  So the optimizer enqueues a
+chunk of iterations with no host read (inference/rcg.py).
+
 Padding contract (as in the JAX package): cells with logL <= PAD_THRESHOLD
 keep logL itself, so their softmax weight is exactly 0, and rows with count
 0 contribute nothing.
@@ -59,7 +66,28 @@ def _on_cpu(logL: torch.Tensor) -> bool:
 
 
 def _scalar(x, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(float(x), dtype=dtype, device=device)
+    """x (a Python number or a 0-d tensor) as a 0-d tensor of `dtype` on
+    `device`, rounded to nearest from float64; a tensor is never read on
+    the host."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(float(x), dtype=F64)
+    return x.to(device=device, dtype=dtype)
+
+
+def _unless_done(done, *outs):
+    """outs, or zeros in their place where the 0-d bool `done` is set
+    (None: never), with no host read."""
+    if done is None:
+        return outs
+    return tuple(torch.where(done.to(o.device), torch.zeros_like(o), o) for o in outs)
+
+
+def _flag(done, device):
+    """The done flag as a bool on `device`, and its pointer (0: none)."""
+    if done is None:
+        return None, None
+    done = done.to(device=device, dtype=torch.bool).contiguous()
+    return done, done.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +116,9 @@ def masked_softmax(logL: torch.Tensor, L: torch.Tensor, c: torch.Tensor, v: torc
     return gamma, num, denom
 
 
-def rcg_norm_plain(logL, counts, psi, c, v, *, compute_dtype):
-    """Plain K1: sum_e sum_g w * s^2 at gamma = (c, v), float64 scalar."""
+def rcg_norm_plain(logL, counts, psi, c, v, *, compute_dtype, done=None):
+    """Plain K1: sum_e sum_g w * s^2 at gamma = (c, v), float64 scalar
+    (0 where `done` is set)."""
     rcg_norm_plain.launches += 1
     cd, dev = compute_dtype, logL.device
     psi = psi.to(cd)
@@ -108,16 +137,16 @@ def rcg_norm_plain(logL, counts, psi, c, v, *, compute_dtype):
         w = cnt * (num / denom)
         s = (t - lse1) - gamma
         total = total + (w * s * s).sum(dim=1).to(F64).sum()
-    return total
+    return _unless_done(done, total)[0]
 
 
 rcg_norm_plain.launches = 0
 
 
-def rcg_update_plain(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype):
+def rcg_update_plain(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None):
     """Plain K2: (colsum (G,), scalar), both float64.  The scalar is
     sum_e (row_new - row_old); with c_old None (absolute mode) it is
-    sum_e row_new."""
+    sum_e row_new.  Both are 0 where `done` is set."""
     rcg_update_plain.launches += 1
     cd, dev = compute_dtype, logL.device
     absolute = c_old is None
@@ -143,7 +172,7 @@ def rcg_update_plain(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype)
             row = row - (w_old * (L - g_old)).sum(dim=1)
         colsum = colsum + w_new.to(F64).sum(dim=0)
         total = total + row.to(F64).sum()
-    return colsum, total
+    return _unless_done(done, colsum, total)
 
 
 rcg_update_plain.launches = 0
@@ -191,20 +220,23 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
-def rcg_norm_kernel(logL, counts, psi, c, v, *, compute_dtype):
+def rcg_norm_kernel(logL, counts, psi, c, v, *, compute_dtype, done=None):
     """K1 on the card (msweep_tpu_torch/csrc/rcg_norm.cu)."""
     from ._build import load
 
     suffix, (counts, psi, v) = _check_inputs(logL, counts, compute_dtype, (psi, v))
     E, G = logL.shape
-    rows_per_cta, n_cta = _grid(E, logL.device)
-    part = torch.empty((n_cta,), dtype=F64, device=logL.device)
-    out = torch.empty((1,), dtype=F64, device=logL.device)
-    with torch.cuda.device(logL.device):
-        stream = torch.cuda.current_stream(logL.device).cuda_stream
+    dev = logL.device
+    rows_per_cta, n_cta = _grid(E, dev)
+    c = _scalar(c, compute_dtype, dev)
+    done, done_ptr = _flag(done, dev)
+    part = torch.empty((n_cta,), dtype=F64, device=dev)
+    out = torch.empty((1,), dtype=F64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(load(), f"rcg_norm_{suffix}")(
-            logL.data_ptr(), counts.data_ptr(), psi.data_ptr(), float(c), v.data_ptr(),
-            E, G, rows_per_cta, n_cta, part.data_ptr(), out.data_ptr(), stream,
+            logL.data_ptr(), counts.data_ptr(), psi.data_ptr(), c.data_ptr(), v.data_ptr(),
+            done_ptr, E, G, rows_per_cta, n_cta, part.data_ptr(), out.data_ptr(), stream,
         )
     _raise_on(rc, "rcg_norm")
     rcg_norm_kernel.launches += 1
@@ -216,20 +248,23 @@ rcg_norm_kernel.launches = 0
 rcg_norm_kernel.by_suffix = dict.fromkeys(INSTANTIATIONS.values(), 0)
 
 
-def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype):
+def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None):
     """K2 on the card (msweep_tpu_torch/csrc/rcg_update.cu); c_old None
     selects the absolute mode."""
     from ._build import load
 
     absolute = c_old is None
+    dev = logL.device
+    c_new = _scalar(c_new, compute_dtype, dev)
     if absolute:
-        c_old, v_old = 0.0, v_new
+        c_old, v_old = c_new, v_new  # not read
+    c_old = _scalar(c_old, compute_dtype, dev)
     suffix, (counts, v_old, v_new) = _check_inputs(
         logL, counts, compute_dtype, (v_old, v_new)
     )
     E, G = logL.shape
-    rows_per_cta, n_cta = _grid(E, logL.device)
-    dev = logL.device
+    rows_per_cta, n_cta = _grid(E, dev)
+    done, done_ptr = _flag(done, dev)
     part_s = torch.empty((n_cta,), dtype=F64, device=dev)
     part_c = torch.empty((n_cta, G), dtype=F64, device=dev)
     out_s = torch.empty((1,), dtype=F64, device=dev)
@@ -237,9 +272,9 @@ def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(load(), f"rcg_update_{suffix}")(
-            logL.data_ptr(), counts.data_ptr(), float(c_old), v_old.data_ptr(),
-            float(c_new), v_new.data_ptr(), int(absolute), E, G, rows_per_cta, n_cta,
-            part_s.data_ptr(), part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr(),
+            logL.data_ptr(), counts.data_ptr(), c_old.data_ptr(), v_old.data_ptr(),
+            c_new.data_ptr(), v_new.data_ptr(), done_ptr, int(absolute), E, G, rows_per_cta,
+            n_cta, part_s.data_ptr(), part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr(),
             stream,
         )
     _raise_on(rc, "rcg_update")
@@ -257,26 +292,25 @@ rcg_update_kernel.by_suffix = dict.fromkeys(INSTANTIATIONS.values(), 0)
 # ---------------------------------------------------------------------------
 
 
-def rcg_norm(logL, counts, psi, c, v, *, compute_dtype):
+def rcg_norm(logL, counts, psi, c, v, *, compute_dtype, done=None):
     """Pass 1 at gamma = (c, v): the metric norm, a float64 0-d tensor.
 
     logL (E, G); counts (E,) in logL's dtype; psi = digamma(N) and v (G,);
-    c a Python float.  c, psi and v are rounded to compute_dtype."""
+    c a Python number or a 0-d tensor.  c, psi and v are rounded to
+    compute_dtype.  0 where the 0-d bool `done` is set."""
     if _on_cpu(logL):
-        return rcg_norm_plain(logL, counts, psi, c, v, compute_dtype=compute_dtype)
-    return rcg_norm_kernel(logL, counts, psi, c, v, compute_dtype=compute_dtype)
+        return rcg_norm_plain(logL, counts, psi, c, v, compute_dtype=compute_dtype, done=done)
+    return rcg_norm_kernel(logL, counts, psi, c, v, compute_dtype=compute_dtype, done=done)
 
 
-def rcg_update(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype):
+def rcg_update(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None):
     """Pass 2: (colsum (G,), ELBO data-term change), float64, at
-    gamma' = (c_new, v_new) against gamma = (c_old, v_old)."""
+    gamma' = (c_new, v_new) against gamma = (c_old, v_old); zeros where
+    `done` is set."""
+    kw = dict(compute_dtype=compute_dtype, done=done)
     if _on_cpu(logL):
-        return rcg_update_plain(
-            logL, counts, c_old, v_old, c_new, v_new, compute_dtype=compute_dtype
-        )
-    return rcg_update_kernel(
-        logL, counts, c_old, v_old, c_new, v_new, compute_dtype=compute_dtype
-    )
+        return rcg_update_plain(logL, counts, c_old, v_old, c_new, v_new, **kw)
+    return rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, **kw)
 
 
 def rcg_bound_stats(logL, counts, c, v, *, compute_dtype):
@@ -292,8 +326,9 @@ def materialize_gamma(logL, c, v):
     """gamma = rownorm of the masked affine map, in logL's dtype: the full
     (E, G) log-probabilities, built once after convergence when an output
     needs them (msweep_tpu/ops/rcg_pallas.py:459-470).  Plain PyTorch on
-    either device.  gamma = ghat - lse as there (not masked_softmax's
-    (ghat - m) - log(denom), which rounds otherwise on all-NEG rows)."""
+    either device; c a Python number or a 0-d tensor.  gamma = ghat - lse
+    as there (not masked_softmax's (ghat - m) - log(denom), which rounds
+    otherwise on all-NEG rows)."""
     c = _scalar(c, logL.dtype, logL.device)
     ghat = torch.where(logL <= PAD_THRESHOLD, logL, c * logL + v.to(logL.dtype))
     m = ghat.amax(dim=1, keepdim=True)

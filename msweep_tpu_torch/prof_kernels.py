@@ -13,8 +13,8 @@ comma-separated choice of rows (default all):
   exp2            T3: read + two exp sweeps
   norm            K1, rcg pass 1 (ops/rcg_kernels.rcg_norm)
   update          K2, rcg pass 2 (ops/rcg_kernels.rcg_update)
-  full            implicit rcg iterations through inference/rcg._rcg_chunk,
-                  including its two host syncs per iteration
+  full            implicit rcg iterations through inference/rcg._rcg_chunk:
+                  one chunk of REPS iterations, enqueued with no host sync
 
 T1-T3 (ops/prof_kernels.py) read the matrix once and do zero, one or two
 exps per cell, so their times against K1's and K2's (which do two exps per
@@ -28,8 +28,9 @@ Timing on CUDA: one warm-up, then REPS launches between two CUDA events.
 The T1-T3 reps are chained through the device: each reads its scalar s by
 pointer from the previous rep's out[0], and the kernel folds it in
 (s * 1e-30), so no rep can start before the last has finished.  K1 and K2
-take their scalars by value and are timed back to back on one stream.
-The `full` and dispatch rows use the host clock, ended by a synchronise.
+take their scalars by pointer (0-d tensors on the card, as the optimizer
+passes them) and are timed back to back on one stream.  The `full` and
+dispatch rows use the host clock, ended by a synchronise.
 
 `--backend cpu` runs the plain PyTorch versions, with host times; it
 exists so the tests can run every row without a card.  The inputs are
@@ -70,7 +71,7 @@ ROW_LABELS = {
     "exp2": "exp2+2lse (T3)",
     "norm": "rcg_norm (K1, pass 1)",
     "update": "rcg_update (K2, pass 2)",
-    "full": "full implicit step (2 host syncs/iter)",
+    "full": "full implicit step (one chunk)",
 }
 
 COUNTERS = (KP.prof_read_kernel, KP.prof_exp_kernel, KP.prof_exp2_kernel, K.rcg_norm_kernel,
@@ -90,6 +91,8 @@ class Profiler:
             torch.randn(E, G, generator=g, device=device, dtype=torch.float32) * 4.0, dim=1)
         self.counts = torch.ones(E, dtype=torch.float32, device=device)
         self.zeros = torch.zeros(G, dtype=torch.float64, device=device)
+        self.half = torch.full((), 0.5, dtype=torch.float64, device=device)
+        self.one = torch.ones((), dtype=torch.float64, device=device)
 
     def _sync(self):
         if self.cuda:
@@ -144,15 +147,15 @@ class Profiler:
 
     def norm(self) -> None:
         def step(_):
-            return K.rcg_norm(self.logL, self.counts, self.zeros, 1.0, self.zeros,
+            return K.rcg_norm(self.logL, self.counts, self.zeros, self.one, self.zeros,
                               compute_dtype=torch.float32)
 
         self.report("norm", self._time(step, None), 1)
 
     def update(self) -> None:
         def step(_):
-            return K.rcg_update(self.logL, self.counts, 0.5, self.zeros, 1.0, self.zeros,
-                                compute_dtype=torch.float32)
+            return K.rcg_update(self.logL, self.counts, self.half, self.zeros, self.one,
+                                self.zeros, compute_dtype=torch.float32)
 
         self.report("update", self._time(step, None), 1)
 

@@ -147,7 +147,7 @@ def main(argv=None) -> int:
                 rec[name] = KB.kernel_info(name, KB.INSTANTIATIONS[dtype], G, dev)
         if dtype == torch.float32:
             cols = [cT[:, b].contiguous() for b in range(B)]
-            co, cn = c_old.tolist(), c_new.tolist()  # K1/K2 take c by value
+            co, cn = c_old.tolist(), c_new.tolist()  # every tree's K1/K2 take Python floats
             kw = dict(compute_dtype=dtype)
             rec["k1_x_B_ms"] = _time_ms(torch, lambda: [
                 K.rcg_norm_kernel(L, cols[b], psi[b], co[b], v_old[b], **kw)

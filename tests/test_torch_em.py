@@ -205,13 +205,16 @@ def test_em_padding_inert():
 
 def test_cpu_tensors_take_the_plain_em_step():
     """On CPU tensors a whole EM fit runs the plain K5 only: one pass for
-    the init, one per iteration, one for the final pseudocounts."""
+    the init, one per step of the 16-step chunk (5 iterations, then 11
+    steps of the frozen state, whose passes return zeros), one for the
+    final pseudocounts."""
     logL, counts, alpha, bc = _problem(64, 128, 1)
     before = (K.em_step_plain.launches, K.em_step_kernel.launches)
-    E_.fit_em_result(problem_from_numpy(logL, counts, alpha, bc, "cpu"), tol=-1.0,
-                     max_iters=5)
+    r = E_.fit_em_result(problem_from_numpy(logL, counts, alpha, bc, "cpu"), tol=-1.0,
+                         max_iters=5)
     after = (K.em_step_plain.launches, K.em_step_kernel.launches)
-    assert np.subtract(after, before).tolist() == [7, 0]
+    assert r.n_iters == 5
+    assert np.subtract(after, before).tolist() == [1 + 16 + 1, 0]
 
 
 def test_em_kernel_wrapper_validates_before_launch():

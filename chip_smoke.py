@@ -8,32 +8,34 @@ Run from the root of a checkout:
 Phases (each raises on failure, and the script exits non-zero):
 
 1. device: the card, its power limit, the torch / CUDA / nvcc versions;
-2. build: the K1-K5 and T1-T3 kernels from msweep_tpu_torch/csrc, one
+2. build: the K1-K6 and T1-T3 kernels from msweep_tpu_torch/csrc, one
    nvcc per source in parallel; the instructions of one exp in float32
    and float64, counted in SASS for the bounds of phase 3;
 3. kernels: every instantiation of K1, K2 (both modes), K3 (norms and
    row terms), K4 (delta against K3's row terms, and absolute; B in 1, 3,
-   8, 13), K5 and T1-T3 against its plain PyTorch version on the card, on
-   inputs drawn from a seed, at ragged and wide shapes (G in 1, 4, 33,
-   512, 4096, 5000, 30000) and a JAX-style padded problem; a rerun must
-   give the same bits, each K3/K4 replicate the bits of K1/K2 on its own
-   column (K4's delta K2's at the old and the new state), and a done mask
-   must zero its replicates and leave the others' bits; K1, K2 and K5 with
-   their done flag set must return zeros; then kernel and
-   plain times at 2,301,952 x 512 (K3/K4 at B = 8), each beside its bound
+   8, 13), K5, K6 (B in 1, 3, 8, 13) and T1-T3 against its plain PyTorch
+   version on the card, on inputs drawn from a seed, at ragged and wide
+   shapes (G in 1, 4, 33, 512, 4096, 5000, 30000) and a JAX-style padded
+   problem; a rerun must give the same bits, each K3/K4 replicate the bits
+   of K1/K2 on its own column (K4's delta K2's at the old and the new
+   state) and each K6 replicate K5's, and a done mask must zero its
+   replicates and leave the others' bits; K1, K2 and K5 with their done
+   flag set must return zeros; then kernel and plain times at 2,301,952 x
+   512 (K3/K4/K6 at B = 8; K6 also beside 8 K5 passes over the same
+   columns), each beside its bound
    (the larger of the bytes it must move at 3.35 TB/s and its operations
    at the data sheet's peak) and the share of the bound it reaches, T1 and
    T2 also beside torch.sum and torch.logsumexp over the rows of the same
-   matrix; K3/K4's and K5's registers, spills, tiles and CTAs an SM in
-   both types; T1's ratio to torch.sum; K1, K2 and K5 with the done flag
+   matrix; K3/K4's, K5's and K6's registers, spills, tiles and CTAs an SM
+   in both types; T1's ratio to torch.sum; K1, K2 and K5 with the done flag
    set, each under 5% of its live pass;
 4. the CLI on tests/golden through msweep_tpu_torch.cli.main on the card:
    rcg in float32 with escalation and --precision double against the golden
    files; emgpu (float64 and --emprecision float), --iters 4 --seed 7
-   (rcgcpu and emgpu) and --run-rate against the same command run on the
-   CPU (--backend cpu, the plain versions); --min-hits 100000 (every group
-   masked), alone and with --iters 2 --write-probs, file for file against
-   the CPU;
+   (rcgcpu, and emgpu, whose bootstrap runs on K6) and --run-rate against
+   the same command run on the CPU (--backend cpu, the plain versions);
+   --min-hits 100000 (every group masked), alone and with --iters 2
+   --write-probs, file for file against the CPU;
 5. the main path at the reference benchmark's efaec-1 scale: the synthetic
    community likelihood (2,301,952 ECs x 512 groups) packed in float32 and
    fitted with fit_result("rcgcpu", tol=1e-6) with escalation; theta held
@@ -62,7 +64,8 @@ Phases (each raises on failure, and the script exits non-zero):
    that names the K1 and K2 kernels;
 10. EC-axis sharding on the one card: the phase-5 fit on two shards against
    the float64 fit and phase 5; EM and the B = 8 bootstrap on three shards
-   at the golden size against unsharded fits; a 3-EC problem on four
+   at the golden size against unsharded fits (the rcg and the EM
+   bootstrap); a 3-EC problem on four
    shards (one empty) against the unsharded fits; the golden CLI as a
    one-process NCCL job against the plain run; a two-process gloo run
    (both processes on this card) against the single-process fit;
@@ -72,9 +75,16 @@ Phases (each raises on failure, and the script exits non-zero):
    of phase 7 against its batch column and against a replicate problem
    built by hand (the objective shifted by the two bound constants);
    fit_em, fit_em_result and fit(p64, "emgpu") at 64 float64 iterations,
-   equal to the bit; iterations and objectives beside the parent's.
+   equal to the bit; iterations and objectives beside the parent's;
+12. the EM bootstrap on the same community: B = 8 replicates drawn as in
+   phase 7, fit_em_batch in float64 (the emgpu default) for a fixed 128
+   iterations (two chunks of 64) on K6 and no K5 launch, replicates 0 and 7
+   held against serial fit_em_result(counts=) fits over the same
+   iterations (objective and theta to the bit), ms an iteration beside
+   theirs and its projection to the 5000-iteration cap; then 64 float32
+   iterations (--emprecision float).
 
-Each path of 5-11 sets its kernels' launch counters to 0 just before it
+Each path of 5-12 sets its kernels' launch counters to 0 just before it
 runs and reads them just after.
 
 The last lines are the kernels' JSON record, the card as nvidia-smi names
@@ -107,7 +117,7 @@ E_FULL, G_FULL = 2_301_952, 512  # efaec-1: 8192 * 281 ECs (bench.py:360)
 KERNEL_SHAPES = [(1_000_003, 4), (65_536, 512), (4_099, 4096), (777, 5_000), (1, 1), (37, 33),
                  (9, 30_000)]  # the last: a row of K2/K4 weights wider than shared memory
 PADDED = (4_096, 600, 72, 88)  # E, G, padded rows, padded columns
-BATCH_SIZES = (1, 3, 8, 13)  # bootstrap replicates for K3/K4
+BATCH_SIZES = (1, 3, 8, 13)  # bootstrap replicates for K3/K4 and K6
 SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 # What the parent tree's fits gave on the card (iterations, objective):
 # phase 5's and phase 11's rcg fit and 64 float64 EM iterations from
@@ -126,7 +136,10 @@ DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a l
 # multiply, compare or select is one instruction, issued at half those
 # rates.  Operations per cell that the algorithm needs besides its exps:
 # K1 18 (t, ghat, two maxes and exp sums, s, w, w s^2), K2 23 (two
-# softmaxes with their row terms, the column add), K5 6, T1 1, T2 3, T3 6.
+# softmaxes with their row terms, the column add), K5 6 (t, its max, t - m
+# and its exp sum, w, the column add), K6 6 a replicate (K5's; its exp's
+# guard, a compare and two selects, is not counted, as uexp's in K5 is
+# not), T1 1, T2 3, T3 6.
 # K3 and K4, per replicate, counted one by one from rcg_common.cuh's row
 # functions: K3 25 (t, its max, t - m1 and its exp sum: 4; ghat's compare,
 # multiply, add and select, its max, ghat - m and its exp sum: 7; gamma 2,
@@ -137,16 +150,18 @@ DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a l
 # 1, its conversion from float32 on another pipe not counted).  Exps per
 # cell: K1 2 (lse(t) and the softmax), K2 2 (the old and the new softmax),
 # K3 2 (K1's), K4 1 (the new softmax: K3 hands over the old row terms), K5
-# 1, T1 0, T2 1, T3 2, each counted as the instructions of one exp on its
+# 1, K6 1 a replicate, T1 0, T2 1, T3 2, each counted as the instructions of one exp on its
 # compute type's pipe, counted in this run's SASS
 # (msweep_tpu_torch/exp_cost.py).  Other pipes (MUFU, integer) are not
 # counted, so the operations bound is a floor.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_INSTR_PER_S = {4: 67e12 / 2, 8: 34e12 / 2}  # by the compute type's size in bytes
 OPS_PER_CELL = {"rcg_norm": 18, "rcg_update": 23, "rcg_norm_batch": 25, "rcg_update_batch": 16,
-                "em_step": 6, "prof_read": 1, "prof_exp": 3, "prof_exp2": 6}
+                "em_step": 6, "em_step_batch": 6, "prof_read": 1, "prof_exp": 3,
+                "prof_exp2": 6}
 EXPS_PER_CELL = {"rcg_norm": 2, "rcg_update": 2, "rcg_norm_batch": 2, "rcg_update_batch": 1,
-                 "em_step": 1, "prof_read": 0, "prof_exp": 1, "prof_exp2": 2}
+                 "em_step": 1, "em_step_batch": 1, "prof_read": 0, "prof_exp": 1,
+                 "prof_exp2": 2}
 
 
 def _say(msg: str) -> None:
@@ -235,6 +250,70 @@ def _check_em(torch, KE, L, em_inputs, label):
     if any(bool(o.any()) for o in done):
         raise AssertionError(f"{label} em_step: a pass with its done flag set returned nonzeros")
     return max(float((lse - lse_w).abs().max()), float((col - col_w).abs().max()), gap)
+
+
+def _em_batch_inputs(torch, L, B, seed, pad_rows=0):
+    """countsT (E, B) in 1..39 (0 on padded rows), and each replicate's
+    lse_prev and logtheta drawn as _em_inputs draws them: (countsT,
+    lse_prev (E, B), logtheta (B, G)), as the lockstep loop hands them to
+    K6."""
+    dev = L.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    countsT = torch.randint(1, 40, (L.shape[0], B), generator=g, device=dev).to(L.dtype)
+    if pad_rows:
+        countsT[L.shape[0] - pad_rows:] = 0
+    drawn = [_em_inputs(torch, L, countsT[:, b], seed + 1 + b) for b in range(B)]
+    return (countsT.contiguous(), torch.stack([d[1] for d in drawn], dim=1).contiguous(),
+            torch.stack([d[2] for d in drawn]))
+
+
+def _check_em_batch(torch, KE, KEB, L, inputs, label):
+    """K6 against its plain version (lse and colsum rtol 1e-5 / 1e-12, each
+    ddot within that times its sum |c lse|); rerun bit-identical; every
+    replicate b bit-identical to K5 on column b (K5's grid and row
+    functions); a done mask (every third replicate from the second) that
+    zeroes those replicates and leaves the live ones' bits.  Max abs
+    error."""
+    countsT, lse_prev, logtheta = inputs
+    rtol = 1e-5 if L.dtype == torch.float32 else 1e-12
+    B = countsT.shape[1]
+    done = torch.arange(B, device=L.device) % 3 == 1
+    live = ~done
+    got = KEB.em_step_batch_kernel(L, *inputs)
+    want = KEB.em_step_batch_plain(L, *inputs)
+    again = KEB.em_step_batch_kernel(L, *inputs)
+    masked = KEB.em_step_batch_kernel(L, *inputs, done=done)
+    torch.cuda.synchronize()
+    (lse, col, dd), (lse_w, col_w, dd_w) = got, want
+    if not (torch.isfinite(lse).all() and torch.isfinite(col).all() and torch.isfinite(dd).all()):
+        raise AssertionError(f"{label} em_step_batch: non-finite output")
+    if not torch.allclose(lse, lse_w, rtol=rtol, atol=0):
+        raise AssertionError(f"{label} em_step_batch: lse off by "
+                             f"{float((lse - lse_w).abs().max())!r}")
+    if not torch.allclose(col, col_w, rtol=rtol, atol=1e-12):
+        raise AssertionError(f"{label} em_step_batch: colsum off by "
+                             f"{float((col - col_w).abs().max())!r}")
+    scales = (countsT * lse_w).abs().to(torch.float64).sum(dim=0)
+    gaps = (dd - dd_w).abs()
+    if not bool((gaps <= rtol * scales).all()):
+        raise AssertionError(f"{label} em_step_batch: ddot gaps {gaps.tolist()} vs "
+                             f"{scales.tolist()}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label} em_step_batch: rerun differs")
+    lse_m, col_m, dd_m = masked
+    if not (torch.equal(lse_m[:, live], lse[:, live]) and torch.equal(col_m[live], col[live])
+            and torch.equal(dd_m[live], dd[live]) and not lse_m[:, done].any()
+            and not col_m[done].any() and not dd_m[done].any()):
+        raise AssertionError(f"{label} em_step_batch: the done mask moved a live replicate "
+                             "or left a done one")
+    for b in range(B):
+        one = KE.em_step_kernel(L, countsT[:, b].contiguous(), lse_prev[:, b].contiguous(),
+                                logtheta[b])
+        if not (torch.equal(one[0], lse[:, b]) and torch.equal(one[1], col[b])
+                and float(one[2]) == float(dd[b])):
+            raise AssertionError(f"{label} em_step_batch replicate {b}: not K5's bits")
+    lse_err = float((lse - lse_w).abs().max()) if lse.numel() else 0.0
+    return max(lse_err, float((col - col_w).abs().max()), float(gaps.max()))
 
 
 def _batch_inputs(torch, E, G, B, ldtype, seed, pad_rows=0):
@@ -433,7 +512,8 @@ def bound_ms(name, E, G, lsize, csize, exp_instr, B=1):
     once at HBM_BYTES_PER_S, against OPS_PER_CELL plus EXPS_PER_CELL
     times `exp_instr[csize]` (instructions of one exp) at the peak rate.
     K3 writes the (E, B) row terms that K4 reads back; both read the (B,)
-    done mask."""
+    done mask.  K6 reads countsT, lse_prev (E, B) and logtheta (B, G) and
+    writes lse (E, B), colsum (B, G) and ddot (B,)."""
     cells = E * G
     moved = {
         "rcg_norm": cells * lsize + E * lsize + 2 * G * csize + 8,
@@ -443,6 +523,8 @@ def bound_ms(name, E, G, lsize, csize, exp_instr, B=1):
         "rcg_update_batch": (cells * lsize + E * B * lsize + E * B * csize
                              + (G + 1) * B * csize + (G + 1) * B * 8 + B),
         "em_step": cells * lsize + E * lsize + 2 * E * csize + G * csize + (G + 1) * 8,
+        "em_step_batch": (cells * lsize + E * B * lsize + 2 * E * B * csize + B * G * csize
+                          + (G + 1) * B * 8 + B),
     }.get(name, cells * 4 + 4 + E * 4)  # T1-T3: x, s, the (E,) output
     t_bytes = moved / HBM_BYTES_PER_S
     ops = OPS_PER_CELL[name] + EXPS_PER_CELL[name] * exp_instr[csize]
@@ -537,7 +619,7 @@ def phase_build():
 
     path, seconds = _build.build(verbose=True)
     _build.load()
-    _say(f"build: {seconds:.3f} s (one nvcc per source in parallel, then a link; K1-K5, "
+    _say(f"build: {seconds:.3f} s (one nvcc per source in parallel, then a link; K1-K6, "
          f"T1-T3) -> {os.path.relpath(path, REPO)}")
     pipes = exp_cost.measure()
     exp_instr = {4: pipes["float32"]["fp32"], 8: pipes["float64"]["fp64"]}
@@ -550,6 +632,7 @@ def phase_build():
 
 def phase_kernels(torch, exp_instr):
     _say("== phase 3: kernels against their plain versions on the card")
+    from msweep_tpu_torch.ops import em_batch_kernels as KEB
     from msweep_tpu_torch.ops import em_kernels as KE
     from msweep_tpu_torch.ops import prof_kernels as KP
     from msweep_tpu_torch.ops import rcg_batch_kernels as KB
@@ -570,14 +653,17 @@ def phase_kernels(torch, exp_instr):
                 for B in BATCH_SIZES:
                     b_in = _batch_inputs(torch, E, G, B, ld, 2000 + i, pad_rows=pr)
                     berrs = _check_batch(torch, K, KB, L, b_in, f"E={E} G={G} {suffix} B={B}")
+                    em_in = _em_batch_inputs(torch, L, B, 5000 + i, pad_rows=pr)
+                    eerr = _check_em_batch(torch, KE, KEB, L, em_in, f"E={E} G={G} {suffix} B={B}")
                     line.append(f"B={B} norm_batch {berrs['rcg_norm_batch']:.3e} "
-                                f"update_batch {berrs['rcg_update_batch']:.3e}")
-                    del b_in
+                                f"update_batch {berrs['rcg_update_batch']:.3e} "
+                                f"em_step_batch {eerr:.3e}")
+                    del b_in, em_in
                 if ld == torch.float32:
                     serr, _ = _check_sweeps(torch, KP, L, 4000 + i, f"E={E} G={G}")
                     line.append(" ".join(f"{n} {e:.3e}" for n, e in serr.items()))
                 _say(f"  ok E={E} G={G} {suffix}: max abs err " + ", ".join(line)
-                     + "; K3/K4 replicates = K1/K2 bits")
+                     + "; K3/K4 replicates = K1/K2 bits, K6 replicates = K5 bits")
             del inputs
     record = {}
     E, G = E_FULL, G_FULL
@@ -623,6 +709,24 @@ def phase_kernels(torch, exp_instr):
                                 _time_ms(torch, lambda: KE.em_step_plain(L, *em_in), 3))
             _done_pass(torch, f"em_step {suffix}", times["em_step"][0],
                        lambda: KE.em_step_kernel(L, *em_in, done=flag))
+            # K6 at B = 8, beside 8 K5 passes over the same columns.
+            em_b = _em_batch_inputs(torch, L, 8, 8)
+            errs["em_step_batch"] = _check_em_batch(torch, KE, KEB, L, em_b,
+                                                    f"E={E} G={G} {suffix} B=8")
+            cols8 = [(em_b[0][:, b].contiguous(), em_b[1][:, b].contiguous(), em_b[2][b])
+                     for b in range(8)]
+            times["em_step_batch"] = (
+                _time_ms(torch, lambda: KEB.em_step_batch_kernel(L, *em_b), 10),
+                _time_ms(torch, lambda: KEB.em_step_batch_plain(L, *em_b), 2),
+            )
+            k5x8 = _time_ms(torch, lambda: [KE.em_step_kernel(L, *c) for c in cols8], 5)
+            info = KEB.kernel_info(suffix, G, torch.cuda.current_device())
+            _say(f"  em_step_batch {suffix} at G={G}, B=8: {times['em_step_batch'][0]:.4f} ms "
+                 f"against 8 K5 passes over the same columns {k5x8:.4f} ms "
+                 f"({k5x8 / times['em_step_batch'][0]:.3f}x); {info['registers']} registers, "
+                 f"{info['spill_bytes']} local (spilled) bytes a thread, tile of "
+                 f"{info['tile_rows']} staged rows, {info['ctas_per_sm']} CTAs an SM")
+            del em_b, cols8
             B = 8
             b_in = _batch_inputs(torch, E, G, B, ld, 8)
             countsT, psi, c_old, v_old, c_new, v_new = b_in
@@ -669,7 +773,7 @@ def phase_kernels(torch, exp_instr):
             _say(f"  prof_read {t1_ms:.4f} ms ({gb / t1_ms:.3f} TB/s), {t1_ms / sum_ms:.4f} x "
                  f"torch.sum ({sum_ms:.4f} ms, {gb / sum_ms:.3f} TB/s)")
         for name, (ms, plain_ms) in times.items():
-            if name in ("em_step", "rcg_norm_batch", "rcg_update_batch") + SWEEPS:
+            if name in ("em_step", "em_step_batch", "rcg_norm_batch", "rcg_update_batch") + SWEEPS:
                 b = " (B=8)" if "batch" in name else ""
                 bms, by = bounds[name]
                 lib = f", one call {library[name]:.4f} ms" if name in library else ""
@@ -677,11 +781,12 @@ def phase_kernels(torch, exp_instr):
                      f"share of bound {bms / ms:.3f}, plain {plain_ms:.4f} ms{lib}, "
                      f"max abs err {errs[name]:.3e}")
         # The kernels' JSON record: the float32 passes of the rcg paths
-        # (default run and bootstrap), and K5 in float64, the emgpu default,
-        # and in float32 (--emprecision float).
+        # (default run and bootstrap), and K5 and K6 in float64, the emgpu
+        # default, and in float32 (--emprecision float).
         for name, (ms, plain_ms) in times.items():
-            key = "em_step_f32" if (name, suffix) == ("em_step", "f32_f32") else name
-            if key == "em_step_f32" or suffix == ("f64_f64" if name == "em_step" else "f32_f32"):
+            em = name in ("em_step", "em_step_batch")
+            key = f"{name}_f32" if em and suffix == "f32_f32" else name
+            if em or suffix == "f32_f32":
                 bms, by = bounds[name]
                 record[key] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=errs[name],
                                    bound_ms=bms, bound_by=by, library_ms=library.get(name))
@@ -760,6 +865,7 @@ def _cli_record(argv):
 
 def phase_cli(torch):
     _say("== phase 4: the CLI on tests/golden, on the card")
+    from msweep_tpu_torch.ops import em_batch_kernels as KEB
     from msweep_tpu_torch.ops import em_kernels as KE
     from msweep_tpu_torch.ops import rcg_batch_kernels as KB
     from msweep_tpu_torch.ops import rcg_kernels as K
@@ -794,7 +900,7 @@ def phase_cli(torch):
 
         # The ported paths: each run on the card against the same command on
         # the CPU (--backend cpu: the plain versions, float64 unless asked).
-        kernels = {"em": (KE.em_step_kernel,),
+        kernels = {"em": (KE.em_step_kernel,), "em_bootstrap": (KEB.em_step_batch_kernel,),
                    "bootstrap": (KB.rcg_norm_batch_kernel, KB.rcg_update_batch_kernel),
                    "rcg": (K.rcg_norm_kernel, K.rcg_update_kernel)}
         runs = [
@@ -805,7 +911,7 @@ def phase_cli(torch):
              ["--iters", "4", "--seed", "7", "--precision", "double"], ("rcg", "bootstrap")),
             ("emgpu --iters 4 --seed 7 --precision double",
              ["--algorithm", "emgpu", "--iters", "4", "--seed", "7", "--precision", "double"],
-             ("em",)),
+             ("em", "em_bootstrap")),
             ("--run-rate --precision double", ["--run-rate", "--precision", "double"], ("rcg",)),
         ]
         theta_f64 = None
@@ -1235,7 +1341,7 @@ def phase_shard(torch, lik, full):
     import torch.distributed as dist
 
     from msweep_tpu_torch.core.sample import BootstrapResampler
-    from msweep_tpu_torch.inference import fit_rcg_batch, fit_result, pack_problem
+    from msweep_tpu_torch.inference import fit_em_batch, fit_rcg_batch, fit_result, pack_problem
     from msweep_tpu_torch.ops import rcg_kernels as K
 
     dev = torch.device("cuda", 0)
@@ -1283,6 +1389,12 @@ def phase_shard(torch, lik, full):
          f"{i1.tolist()}; max |theta gap| {gap:.3e} (bars: same iterations, 1e-10)")
     if i1.tolist() != i3.tolist() or not gap <= 1e-10:
         raise AssertionError("the sharded bootstrap differs from the unsharded batch")
+    (t1, i1, _), (t3, i3, _) = (fit_em_batch(p, batch, tol=1e-6) for p in (p1, p3))
+    gap = float((t1 - t3).abs().max())
+    _say(f"  EM bootstrap B=8 float64 on 3 shards (K6 on each): iterations {i3.tolist()}, "
+         f"unsharded {i1.tolist()}; max |theta gap| {gap:.3e} (bars: same iterations, 1e-10)")
+    if i1.tolist() != i3.tolist() or not gap <= 1e-10:
+        raise AssertionError("the sharded EM bootstrap differs from the unsharded batch")
 
     # Fewer ECs than shards: 3 ECs on 4 shards of the card, the last one
     # empty, against the unsharded fit, float64: rcg, EM and a B = 8 batch.
@@ -1514,6 +1626,94 @@ def phase_api(torch, lik, full, rep0):
     _say(f"  phase 11 {time.perf_counter() - t0:.1f} s")
 
 
+def phase_em_bootstrap(torch, lik):
+    B, iters = 8, 128
+    _say(f"== phase 12: EM bootstrap at E={E_FULL} G={G_FULL}, B={B}, float64 (emgpu), "
+         f"{iters} iterations")
+    from msweep_tpu_torch.core.sample import BootstrapResampler
+    from msweep_tpu_torch.inference import fit_em_batch, fit_em_result, pack_problem
+    from msweep_tpu_torch.ops import em_batch_kernels as KEB
+    from msweep_tpu_torch.ops import em_kernels as KE
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    batch = BootstrapResampler(lik.ec_counts, seed=7).resample_batch(B)  # phase 7's draw
+    torch.cuda.reset_peak_memory_stats()
+    p64 = pack_problem(lik, dtype=torch.float64, device=dev)
+    counters = (KEB.em_step_batch_kernel, KEB.em_step_batch_plain, KE.em_step_kernel,
+                KE.em_step_plain)
+    kw = dict(tol=-1.0, max_iters=iters, chunk=64)  # bench mode: two chunks of 64
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tb, ib, ob = fit_em_batch(p64, batch, **kw)
+    tb, ib, ob = tb.cpu(), ib.tolist(), ob.cpu()
+    fit_s = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    # One K6 launch for the init, one a step (a replicate already done is
+    # skipped inside it: none here, in bench mode before the cap) and one
+    # for the abundances.
+    k6 = launches["em_step_batch_kernel"]
+    skipped = sum(k6 - 2 - i for i in ib)
+    _say(f"  fit_em_batch {fit_s:.3f} s, {fit_s * 1e3 / iters:.4f} ms an iteration, iterations "
+         f"{ib}, peak device memory {peak / 2**30:.3f} GiB; launches {launches}; "
+         f"{skipped} of K6's {(k6 - 2) * B} replicate-passes skipped as done")
+    if ib != [iters] * B or k6 != iters + 2:
+        raise AssertionError(f"the EM bootstrap did not run {iters} lockstep iterations on K6")
+    if launches["em_step_kernel"] or launches["em_step_plain"] or launches["em_step_batch_plain"]:
+        raise AssertionError(f"the EM bootstrap launched K5 or a plain version: {launches}")
+    if not torch.isfinite(tb).all() or float((tb.sum(dim=1) - 1).abs().max()) > 1e-9:
+        raise AssertionError("EM bootstrap thetas are not distributions")
+    _busy_share(torch, lambda: fit_em_batch(p64, batch, tol=-1.0, max_iters=8, chunk=8),
+                "8 lockstep float64 EM iterations, B=8")
+    serial_ms = []
+    for b in (0, B - 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fit_em_result(p64, counts=batch[b], **kw)
+        th = r.theta.cpu()
+        s_ms = (time.perf_counter() - t) * 1e3 / iters
+        serial_ms.append(s_ms)
+        same = r.n_iters == ib[b] and r.objective == float(ob[b]) and torch.equal(th, tb[b])
+        _say(f"  replicate {b}: serial K5 fit (counts=) {r.n_iters} iterations, {s_ms:.4f} ms an "
+             f"iteration, objective {r.objective!r}, batch {float(ob[b])!r}; max |theta gap| "
+             f"{float((th - tb[b]).abs().max()):.3e}; equal to the bit: {same}")
+        if not same:
+            raise AssertionError(f"replicate {b} of the EM bootstrap differs from its serial fit")
+    batch_ms = fit_s * 1e3 / iters
+    serial_b = B * sum(serial_ms) / len(serial_ms)
+    _say(f"  ms an iteration: lockstep batch {batch_ms:.4f} against {B} serial fits "
+         f"{serial_b:.4f} ({B} x the mean of replicates 0 and {B - 1}): "
+         f"{serial_b / batch_ms:.3f}x; "
+         f"projection to the 5000-iteration cap, not measured: batch {batch_ms * 5:.1f} s, "
+         f"serial {serial_b * 5:.1f} s")
+    del p64
+    torch.cuda.empty_cache()
+
+    p32 = pack_problem(lik, dtype=torch.float32, device=dev)  # --emprecision float
+    for fn in counters:
+        fn.launches = 0
+    t = time.perf_counter()
+    tb32, ib32, _ = fit_em_batch(p32, batch, tol=-1.0, max_iters=64, chunk=64)
+    tb32 = tb32.cpu()
+    f32_s = time.perf_counter() - t
+    launches["em_step_batch_f32"] = KEB.em_step_batch_kernel.launches
+    _say(f"  float32, 64 iterations: {f32_s:.3f} s, {f32_s * 1e3 / 64:.4f} ms an iteration, K6 "
+         f"launches {launches['em_step_batch_f32']}, K5 {KE.em_step_kernel.launches}")
+    if (ib32.tolist() != [64] * B or launches["em_step_batch_f32"] != 66
+            or KE.em_step_kernel.launches or KEB.em_step_batch_plain.launches):
+        raise AssertionError("64 float32 lockstep iterations did not run on K6 alone")
+    if not torch.isfinite(tb32).all() or float((tb32.sum(dim=1) - 1).abs().max()) > 1e-5:
+        raise AssertionError("float32 EM bootstrap thetas are not distributions")
+    del p32
+    torch.cuda.empty_cache()
+    _say(f"  phase 12 {time.perf_counter() - t0:.1f} s")
+    return {"em_step_batch_kernel": launches["em_step_batch_kernel"],
+            "em_step_batch_f32": launches["em_step_batch_f32"]}
+
+
 def main() -> int:
     import torch
 
@@ -1536,6 +1736,7 @@ def main() -> int:
     phase_trace(torch)
     phase_shard(torch, lik, full)
     phase_api(torch, lik, full, rep0)
+    launches.update(phase_em_bootstrap(torch, lik))
     loaded = sorted(m for m in set(sys.modules) - START_MODULES
                     if m.split(".")[0] in ("jax", "jaxlib", "msweep_tpu"))
     if loaded:
@@ -1552,6 +1753,11 @@ def main() -> int:
          "rcg_update_batch_kernel"),
         ("em_step", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_kernel"),
         ("em_step_f32", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_f32"),
+        # No TPU kernel: the JAX package vmaps its XLA EM step over the replicates.
+        ("em_step_batch", "em_step_batch.cu", "msweep_tpu/inference/em.py:130",
+         "em_step_batch_kernel"),
+        ("em_step_batch_f32", "em_step_batch.cu", "msweep_tpu/inference/em.py:130",
+         "em_step_batch_f32"),
         ("prof_read", "prof_sweeps.cu", "tools/prof_kernels.py:118", "prof_read"),
         ("prof_exp", "prof_sweeps.cu", "tools/prof_kernels.py:178", "prof_exp"),
         ("prof_exp2", "prof_sweeps.cu", "tools/prof_kernels.py:185", "prof_exp2"),

@@ -22,8 +22,15 @@ reads `done` once per chunk.  The init is one K5 pass too (its ddot
 against lse_prev = 0 is the data term of J), so on a CUDA device every
 pass over logL of an iteration is a kernel launch.
 
-EC-axis sharding (inference/pack.py): each shard runs K5 on its rows and
-keeps its rows' lse; colsum and ddot are reduced across shards and
+The bootstrap's fit_em_batch is the JAX package's lockstep batch: B
+replicates advance together, one K6 pass (ops/em_batch_kernels.py) an
+iteration reading logL once for all of them, each scalar operation of the
+step applied elementwise over the replicates; a replicate that is done
+passes through unchanged and K6 skips its rows.  K6 gives each replicate
+K5's bits, so each takes the trajectory of its serial fit.
+
+EC-axis sharding (inference/pack.py): each shard runs K5 (K6) on its rows
+and keeps its rows' lse; colsum and ddot are reduced across shards and
 processes with DeviceProblem.reduce, so theta, the objective and the
 convergence test are the same on every process.
 
@@ -42,6 +49,7 @@ import torch
 
 from ..utils import NEG
 
+from ..ops.em_batch_kernels import em_step_batch
 from ..ops.em_kernels import em_step
 from .pack import DeviceProblem, auto_chunk
 from .result import FitResult, no_groups_batch, no_groups_fit
@@ -267,30 +275,162 @@ def fit_em_result(
     )
 
 
+# ---------------------------------------------------------------------------
+# Batched (bootstrap) fit: B count vectors over one logL, in lockstep
+# (msweep_tpu/inference/em.py fit_em_batch).
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class EMBatchState:
+    """The EM state of B replicates, on logL's device (lse on each
+    shard's): EMState's fields with a (B,) replicate axis, leading on
+    theta and the scalars and trailing on lse."""
+
+    theta: torch.Tensor  # (B, G) float64
+    lse: tuple  # per shard, (E_s, B) in logL's dtype: row logsumexps at the PREVIOUS thetas
+    prior: torch.Tensor  # (B,) float64
+    objective: torch.Tensor  # (B,) float64
+    delta: torch.Tensor  # (B,) float64
+    it: torch.Tensor  # (B,) int64
+    done: torch.Tensor  # (B,) bool
+
+
+def em_batch_state_from_numpy(fields: Mapping[str, Any], device) -> EMBatchState:
+    """An EMBatchState of an unsharded problem from numpy values by field
+    name, as the JAX package's vmapped EMState holds them: lse (B, E) (it
+    keeps its dtype; the state holds it as (E, B)), theta (B, G), the rest
+    (B,)."""
+    def field(name, dtype=F64):
+        return torch.tensor(np.asarray(fields[name]), dtype=dtype, device=device)
+
+    lse = torch.tensor(np.asarray(fields["lse"]), device=device)
+    return EMBatchState(
+        theta=field("theta"), lse=(lse.T.contiguous(),), prior=field("prior"),
+        objective=field("objective"), delta=field("delta"), it=field("it", torch.int64),
+        done=field("done", torch.bool),
+    )
+
+
+def _sum_g(x: torch.Tensor) -> torch.Tensor:
+    """(B,) sums of a (B, G) tensor over G, each taken as the serial step
+    sums its (G,) vector, so that a replicate keeps the serial fit's bits
+    (one reduction over dim 1 may add in another order)."""
+    return torch.stack([row.sum() for row in x])
+
+
+def _pass_batch(prob: DeviceProblem, countsT: list, lse_prev, logtheta, done=None):
+    """K6 on every shard at logtheta (B, G): (per-shard lse (E_s, B),
+    colsum (B, G), ddot (B,)), colsum and ddot reduced over every row;
+    zeros for the replicates flagged in the (B,) bool `done`."""
+    outs = [em_step_batch(L, cT, lp, logtheta.to(L.device),
+                          None if done is None else done.to(L.device))
+            for (L, _), cT, lp in zip(prob.shards, countsT, lse_prev)]
+    colsum, ddot = prob.reduce([o[1:] for o in outs])
+    return tuple(o[0] for o in outs), colsum, ddot
+
+
+def _em_init_batch(prob: DeviceProblem, countsT: list, am1) -> EMBatchState:
+    """_em_init for B replicates with one K6 pass: theta_0 uniform over
+    real groups for each, lse_0 and J(theta_0) per replicate."""
+    B, G = countsT[0].shape[1], prob.n_groups
+    valid = prob.valid
+    theta0 = (valid.to(F64) / valid.sum().to(F64)).expand(B, G).contiguous()
+    logtheta = _safe_log(theta0)
+    zeros = [torch.zeros((L.shape[0], B), dtype=L.dtype, device=L.device)
+             for L, _ in prob.shards]
+    lse0, _, data0 = _pass_batch(prob, countsT, zeros, logtheta)
+    zero = torch.zeros((B,), dtype=F64, device=theta0.device)
+    return EMBatchState(
+        theta=theta0, lse=lse0, prior=zero,  # unused: step 1 recomputes it
+        objective=data0 + _sum_g(torch.where(valid, am1 * logtheta, 0.0)),
+        delta=torch.full_like(zero, math.inf),
+        it=torch.zeros((B,), dtype=torch.int64, device=zero.device),
+        done=torch.zeros((B,), dtype=torch.bool, device=zero.device),
+    )
+
+
+def _step_batch(st: EMBatchState, prob: DeviceProblem, countsT: list, am1, *,
+                tol: float) -> EMBatchState:
+    """_step for B replicates: one K6 pass, then each of _step's scalar
+    operations elementwise over the replicates, in the same order, and
+    its two sums over G per replicate (_sum_g).  Replicates already done
+    do no row work (their outputs are 0, and _em_chunk_batch keeps their
+    state)."""
+    logtheta = _safe_log(st.theta)
+    lse, colsum, ddot = _pass_batch(prob, countsT, st.lse, logtheta, st.done)
+    prior_now = _sum_g(torch.where(prob.valid, am1 * logtheta, 0.0))
+    first = st.it == 0
+    delta = torch.where(first, torch.full_like(ddot, math.inf), ddot + (prior_now - st.prior))
+    objective = torch.where(first, st.objective, st.objective + delta)
+
+    raw = torch.where(prob.valid, torch.clamp_min(am1 + colsum, 0.0), 0.0)
+    if tol >= 0:
+        done = ~first & (delta.abs() < tol)
+    else:
+        done = torch.zeros_like(first)
+    return EMBatchState(theta=raw / _sum_g(raw)[:, None], lse=lse, prior=prior_now,
+                        objective=objective, delta=delta, it=st.it + 1, done=st.done | done)
+
+
+def _freeze_batch(old: EMBatchState, new: EMBatchState) -> EMBatchState:
+    """`new`, or `old` for the replicates where old.done is set, field by
+    field (each shard's lse on its device, replicates on its columns)."""
+    def keep(a, b, shape):
+        return torch.where(old.done.to(b.device).reshape(shape), a, b)
+
+    return EMBatchState(
+        theta=keep(old.theta, new.theta, (-1, 1)),
+        lse=tuple(keep(a, b, (1, -1)) for a, b in zip(old.lse, new.lse)),
+        **{name: keep(getattr(old, name), getattr(new, name), (-1,))
+           for name in ("prior", "objective", "delta", "it", "done")},
+    )
+
+
+def _em_chunk_batch(state: EMBatchState, prob: DeviceProblem, countsT: list, am1, *,
+                    length: int, tol: float, max_it: int | None = None) -> EMBatchState:
+    """`length` batched iterations enqueued with no host read (the JAX
+    package's vmapped _em_chunk): a replicate that is done passes through
+    unchanged, and one that reaches `max_it` iterations is marked done."""
+    for _ in range(length):
+        new = _step_batch(state, prob, countsT, am1, tol=tol)
+        if max_it is not None:
+            new = replace(new, done=new.done | (new.it >= max_it))
+        state = _freeze_batch(state, new)
+    return state
+
+
 def fit_em_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
                  max_iters: int = 5000, chunk: int | None = None):
     """EM over a (B, E) batch of count vectors sharing one logL
-    (msweep_tpu/inference/em.py fit_em_batch).  Each replicate runs the
-    serial loop and stops at its own convergence, which is where the JAX
-    package's lockstep batch freezes it; each step is one K5 pass.
-    `chunk` (default auto_chunk) is each replicate's convergence-check
-    interval.
+    (msweep_tpu/inference/em.py fit_em_batch): the replicates advance in
+    lockstep, one K6 pass an iteration for all of them, each freezing at
+    its own convergence; the host reads done.all() once per chunk
+    (default auto_chunk).  Each replicate takes the serial fit's
+    trajectory (fit_em_result(counts=...)) to the bit.
 
     Returns (theta (B, G) float64, iterations (B,), objective (B,)
-    float64): abundances from one K5 colsum pass per replicate at its
-    converged theta, never a (B, E, G) batch (no_groups_batch for a
-    problem with no groups)."""
+    float64): abundances from one K6 pass at the final thetas (colsum
+    over each replicate's total count), never a (B, E, G) batch
+    (no_groups_batch for a problem with no groups)."""
     if problem.n_groups == 0:
         return no_groups_batch(problem, counts_batch)
-    batch = [problem.split(c) for c in torch.as_tensor(counts_batch)]
+    split = problem.split(counts_batch)
+    countsT = [part.T.contiguous() for part in split]
     if chunk is None:
         chunk = auto_chunk(problem)
-    states = [_run_em(problem, c, tol=float(tol), max_iters=int(max_iters), verbose=False,
-                      chunk=chunk) for c in batch]
-    theta = torch.stack([
-        _em_state_pseudocounts(problem, st, c) / problem.row_sum(c)
-        for st, c in zip(states, batch)
-    ])
-    iters = torch.tensor([int(st.it) for st in states])
-    objective = torch.tensor([float(st.objective) for st in states], dtype=F64)
-    return theta, iters, objective
+    am1 = problem.alpha - 1.0
+    state = _em_init_batch(problem, countsT, am1)
+    it = 0
+    while it < max_iters:
+        state = _em_chunk_batch(state, problem, countsT, am1, length=chunk, tol=float(tol),
+                                max_it=int(max_iters))
+        it += chunk
+        if tol >= 0 and bool(state.done.all()):
+            break
+    _, colsum, _ = _pass_batch(problem, countsT, state.lse, _safe_log(state.theta))
+    # Each replicate's total as fit_em_result sums its counts: a fresh
+    # (E_s,) vector a shard.
+    total = torch.stack([problem.row_sum([part[b].clone() for part in split])
+                         for b in range(len(state.it))])
+    return colsum / total[:, None], state.it, state.objective

@@ -122,6 +122,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             _P, _P)
         # G, out (5 ints)
         sig(f"em_step_{suffix}_info", _I64, _P)
+        # logL, countsT, lse_prev, logtheta, done, E, G, B, rows_per_cta, n_cta,
+        # lse_out, part_scalar, part_cols, out_scalar, out_cols, stream
+        sig(f"em_step_batch_{suffix}", _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P,
+            _P, _P, _P, _P)
+        # G, out (4 ints)
+        sig(f"em_step_batch_{suffix}_info", _I64, _P)
     for name in ("prof_read", "prof_exp", "prof_exp2"):
         # x, s, E, G, rows_per_cta, n_cta, out, stream
         sig(f"{name}_f32", _P, _P, _I64, _I64, _I64, _I64, _P, _P)

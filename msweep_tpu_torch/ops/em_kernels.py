@@ -38,10 +38,9 @@ from .rcg_kernels import F64, _block_rows, _flag, _grid, _on_cpu, _raise_on, _un
 INSTANTIATIONS = {torch.float32: "f32_f32", torch.float64: "f64_f64"}
 
 
-def em_step_plain(logL, counts, lse_prev, logtheta, done=None):
-    """Plain K5: (lse (E,) in logL's dtype, colsum (G,) float64, ddot
-    float64 0-d); zeros where `done` is set."""
-    em_step_plain.launches += 1
+def em_pass_plain(logL, counts, lse_prev, logtheta):
+    """The arithmetic of plain K5, block by block over the rows: also each
+    replicate's pass of plain K6 (ops/em_batch_kernels.py)."""
     dt, dev = logL.dtype, logL.device
     E, G = logL.shape
     logtheta = logtheta.to(dt)
@@ -59,7 +58,14 @@ def em_step_plain(logL, counts, lse_prev, logtheta, done=None):
         lse[lo:lo + rows] = row_lse
         colsum = colsum + ((cnt[:, None] / denom) * num).to(F64).sum(dim=0)
         ddot = ddot + (cnt * (row_lse - lse_prev[lo:lo + rows].to(dt))).to(F64).sum()
-    return _unless_done(done, lse, colsum, ddot)
+    return lse, colsum, ddot
+
+
+def em_step_plain(logL, counts, lse_prev, logtheta, done=None):
+    """Plain K5: (lse (E,) in logL's dtype, colsum (G,) float64, ddot
+    float64 0-d); zeros where `done` is set."""
+    em_step_plain.launches += 1
+    return _unless_done(done, *em_pass_plain(logL, counts, lse_prev, logtheta))
 
 
 em_step_plain.launches = 0

@@ -2,7 +2,7 @@
 on the card at full size in both types, from the checkout given by --tree,
 so that two versions of the kernels can be compared in one call:
 
-    python3 msweep_tpu_torch/time_batch_kernels.py --tree DIR [--B 8] [--fit]
+    python3 msweep_tpu_torch/time_batch_kernels.py --tree DIR [--B 8] [--fit] [--em]
 
 DIR is the root of a checkout: its msweep_tpu_torch/ is imported and its
 kernels are built there.  The inputs are drawn on the card from --seed as
@@ -18,8 +18,18 @@ and registers, spills, tile rows and CTAs an SM where the tree reports
 them.  With --fit it runs chip_smoke.py phase 7 instead: the B = 8
 float32 bootstrap fit of the synthetic community at 2,301,952 x 512, and
 prints its seconds (host clock, the fit alone), iterations per replicate
-and K3/K4 launches.  Run it as a file, not with -m, so that the tree's
-package is the one imported.
+and K3/K4 launches.
+
+With --em it times the EM bootstrap's pass instead: K6 (ops/em_batch_kernels.py,
+where the tree has it) against B single K5 passes over the replicates'
+columns, in both types, on countsT, lse_prev near each replicate's row
+logsumexps and logtheta with ~20% of each theta at 0; and with --em --fit
+it runs chip_smoke.py phase 12: fit_em_batch of the same community in
+float64 for a fixed 128 iterations (bench mode, two chunks of 64), timed
+after a one-iteration warm-up, with the objectives per replicate (to
+compare trees to the bit) and the K5 / K6 launches.  A tree without K6
+runs its own fit_em_batch (serial fits, one after another).  Run it as a
+file, not with -m, so that the tree's package is the one imported.
 """
 
 from __future__ import annotations
@@ -87,12 +97,127 @@ def _fit(torch, args, KB):
                 **{fn.__name__: fn.launches for fn in counters})
 
 
+def _community(torch, args):
+    """The synthetic community of chip_smoke.py phase 5 at --shape and its
+    B bootstrap replicates as phase 7 draws them."""
+    from msweep_tpu_torch.core.sample import BootstrapResampler
+    from msweep_tpu_torch.synth import make_community_likelihood
+
+    E, G = (int(v) for v in args.shape.lower().split("x"))
+    lik = make_community_likelihood(E, G, seed=1, similarity=0.99, cluster_size=8,
+                                    present_frac=0.06)
+    return lik, BootstrapResampler(lik.ec_counts, seed=7).resample_batch(args.B)
+
+
+def _em_modules():
+    """K5's module and K6's, or None where the tree has no K6."""
+    import importlib
+
+    from msweep_tpu_torch.ops import em_kernels as KE
+
+    try:
+        return KE, importlib.import_module("msweep_tpu_torch.ops.em_batch_kernels")
+    except ImportError:
+        return KE, None
+
+
+def _em_counters(KE, KEB):
+    """The K5 and, where the tree has it, K6 wrappers and plain versions."""
+    fns = [KE.em_step_kernel, KE.em_step_plain]
+    return fns + ([KEB.em_step_batch_kernel, KEB.em_step_batch_plain] if KEB else [])
+
+
+EM_ITERS = 128  # chip_smoke.py phase 12's fixed iterations
+
+
+def _em_fit(torch, args):
+    """chip_smoke.py phase 12's EM bootstrap fit, timed."""
+    import time
+
+    from msweep_tpu_torch.inference import fit_em_batch, pack_problem
+    from msweep_tpu_torch.ops import _build
+
+    _build.load()
+    lik, batch = _community(torch, args)
+    p64 = pack_problem(lik, dtype=torch.float64, device=torch.device("cuda"))
+    fit_em_batch(p64, batch, tol=-1.0, max_iters=1, chunk=1)  # warm-up
+    counters = _em_counters(*_em_modules())
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    theta, iters, objective = fit_em_batch(p64, batch, tol=-1.0, max_iters=EM_ITERS, chunk=64)
+    theta = theta.cpu()
+    fit_s = time.perf_counter() - t
+    return dict(tree=args.tree, E=p64.n_ecs, G=p64.n_groups, B=args.B, fit_s=fit_s,
+                ms_an_iteration=fit_s * 1e3 / EM_ITERS, iters=iters.tolist(),
+                objective=[repr(float(o)) for o in objective],
+                theta_sum=repr(float(theta.sum())),
+                **{fn.__name__: fn.launches for fn in counters})
+
+
+def _em_inputs(torch, L, B, seed):
+    """countsT (E, B), lse_prev (E, B) near each replicate's row
+    logsumexps and logtheta (B, G) with ~20% of each theta at 0."""
+    from msweep_tpu_torch.utils import NEG
+
+    dev, f64 = L.device, torch.float64
+    E, G = L.shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    countsT = torch.randint(1, 40, (E, B), generator=g, device=dev).to(L.dtype).contiguous()
+    theta = torch.rand(B, G, generator=g, device=dev, dtype=f64)
+    theta[torch.rand(B, G, generator=g, device=dev, dtype=f64) < 0.2] = 0
+    theta[:, 0] = 1.0
+    theta = theta / theta.sum(dim=1, keepdim=True)
+    logtheta = torch.where(theta > 0, torch.log(theta), torch.full_like(theta, NEG))
+    lse = torch.empty((E, B), dtype=f64, device=dev)
+    block = max(1, (1 << 24) // G)
+    for b in range(B):
+        for lo in range(0, E, block):
+            lse[lo:lo + block, b] = torch.logsumexp(L[lo:lo + block].to(f64) + logtheta[b], dim=1)
+    lse_prev = lse + 0.05 * torch.randn(lse.shape, generator=g, device=dev, dtype=f64)
+    return countsT, lse_prev.to(L.dtype), logtheta.to(L.dtype)
+
+
+def _em_passes(torch, args):
+    """K6 against B single K5 passes, one JSON line a type."""
+    KE, KEB = _em_modules()
+    E, G = (int(v) for v in args.shape.lower().split("x"))
+    B = args.B
+    dev = torch.cuda.current_device()
+    for dtype in (torch.float32, torch.float64):
+        L = _inputs(torch, E, G, 1, dtype, args.seed)[0]
+        cT, lp, lt = _em_inputs(torch, L, B, args.seed)
+        cols = [(cT[:, b].contiguous(), lp[:, b].contiguous(), lt[b].contiguous())
+                for b in range(B)]
+        suffix = KE.INSTANTIATIONS[dtype]
+        rec = dict(tree=args.tree, E=E, G=G, B=B, dtype=str(dtype).split(".")[-1],
+                   k5_x_B_ms=_time_ms(torch, lambda: [KE.em_step_kernel(L, *c) for c in cols],
+                                      args.reps),
+                   em_step=KE.kernel_info(suffix, G, dev))
+        if KEB is not None:
+            lse, colsum, ddot = KEB.em_step_batch_kernel(L, cT, lp, lt)
+            one = KE.em_step_kernel(L, *cols[0])
+            rec.update(k6_ms=_time_ms(torch, lambda: KEB.em_step_batch_kernel(L, cT, lp, lt),
+                                      args.reps),
+                       em_step_batch=KEB.kernel_info(suffix, G, dev),
+                       replicate0_is_k5=bool(torch.equal(lse[:, 0], one[0])
+                                             and torch.equal(colsum[0], one[1])
+                                             and float(ddot[0]) == float(one[2])),
+                       colsum_sum=float(colsum.sum()), ddot_sum=float(ddot.sum()))
+        print(json.dumps(rec), flush=True)
+        del L, cT, lp, lt, cols
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--shape", default="2301952x512", help="E x G")
     ap.add_argument("--B", type=int, default=8)
     ap.add_argument("--fit", action="store_true", help="time the bootstrap fit of phase 7")
+    ap.add_argument("--em", action="store_true",
+                    help="time K6 against B K5 passes (with --fit: phase 12's EM bootstrap)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=8)
     args = ap.parse_args(argv)
@@ -110,6 +235,12 @@ def main(argv=None) -> int:
         raise RuntimeError(f"imported {KB.__file__}, not the tree {tree}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if args.em:
+        if args.fit:
+            print(json.dumps(_em_fit(torch, args)), flush=True)
+        else:
+            _em_passes(torch, args)
+        return 0
     if args.fit:
         print(json.dumps(_fit(torch, args, KB)), flush=True)
         return 0

@@ -20,15 +20,22 @@ Phases (each raises on failure, and the script exits non-zero):
    of K1/K2 on its own column (K4's delta K2's at the old and the new
    state) and each K6 replicate K5's, and a done mask must zero its
    replicates and leave the others' bits; K1, K2 and K5 with their done
-   flag set must return zeros; then kernel and plain times at 2,301,952 x
-   512 (K3/K4/K6 at B = 8; K6 also beside 8 K5 passes over the same
-   columns), each beside its bound
-   (the larger of the bytes it must move at 3.35 TB/s and its operations
-   at the data sheet's peak) and the share of the bound it reaches, T1 and
-   T2 also beside torch.sum and torch.logsumexp over the rows of the same
-   matrix; K3/K4's, K5's and K6's registers, spills, tiles and CTAs an SM
-   in both types; T1's ratio to torch.sum; K1, K2 and K5 with the done flag
-   set, each under 5% of its live pass;
+   flag set must return zeros; K5 and K6 on the row ranges they share at E
+   not a multiple of the tile, E below a wave's ranges, E = 0, G in 3, 511
+   and 512 and logL times 40 (exp's slow range), every K6 replicate K5's
+   bits, and their float64 exp against CUDA's exp on 3 x 2^30 arguments,
+   bit for bit; then kernel and plain times at
+   2,301,952 x 512 (K3/K4/K6 at B = 8; K6 also beside 8 K5 passes over
+   the same columns), each beside its bound (the larger of the bytes it
+   must move at 3.35 TB/s and its operations at the data sheet's peak;
+   K6 also beside the time its own instructions take to issue by pipe,
+   from its census, with the term that binds) and the share of the bound
+   it reaches, T1 and T2 also beside torch.sum and torch.logsumexp over
+   the rows of the same matrix;
+   K3/K4's, K5's and K6's registers, spills, tiles and CTAs an SM in both
+   types, K6's rows a warp at once and its shared row ranges; T1's ratio
+   to torch.sum; K1, K2 and K5 with the done flag set, each under 5% of
+   its live pass;
 4. the CLI on tests/golden through msweep_tpu_torch.cli.main on the card:
    rcg in float32 with escalation and --precision double against the golden
    files; emgpu (float64 and --emprecision float), --iters 4 --seed 7
@@ -118,6 +125,14 @@ KERNEL_SHAPES = [(1_000_003, 4), (65_536, 512), (4_099, 4096), (777, 5_000), (1,
                  (9, 30_000)]  # the last: a row of K2/K4 weights wider than shared memory
 PADDED = (4_096, 600, 72, 88)  # E, G, padded rows, padded columns
 BATCH_SIZES = (1, 3, 8, 13)  # bootstrap replicates for K3/K4 and K6
+# K5 and K6 on their shared row ranges: E not a multiple of the 32-row
+# tile, E below a wave's 792 ranges (one range a tile), E = 0; G of one
+# chunk in 3, 511 and 512; and logL times 40 (cells down to ~-900), whose
+# exps reach exp's slow range (t - max in (-745, -708.4]) and its 0.
+# B = 1 and 8 run at KERNEL_SHAPES and at full size; here B = 3 and 13
+# (a CTA column part full, and two columns).
+EM_SHAPES = [(4_097, 511, 1), (500, 3, 1), (0, 512, 1), (4_099, 512, 40)]
+EM_BATCH_SIZES = (3, 13)
 SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 # What the parent tree's fits gave on the card (iterations, objective):
 # phase 5's and phase 11's rcg fit and 64 float64 EM iterations from
@@ -137,9 +152,14 @@ DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a l
 # rates.  Operations per cell that the algorithm needs besides its exps:
 # K1 18 (t, ghat, two maxes and exp sums, s, w, w s^2), K2 23 (two
 # softmaxes with their row terms, the column add), K5 6 (t, its max, t - m
-# and its exp sum, w, the column add), K6 6 a replicate (K5's; its exp's
-# guard, a compare and two selects, is not counted, as uexp's in K5 is
-# not), T1 1, T2 3, T3 6.
+# and its exp sum, w, the column add), K6 6 a replicate (K5's), T1 1, T2
+# 3, T3 6.  Beside K6's bound, phase 3 prints the time
+# K6's own instructions take to issue, by pipe
+# (msweep_tpu_torch/exp_cost.py em_batch_issue_ms: its hot loop's
+# instructions counted in this run's SASS at each pipe's rate, its
+# shared-memory bytes and shuffles at 128 B a clock an SM): how well K6
+# issues what it does, not a bound of its function, since it counts the
+# work K6's design adds.
 # K3 and K4, per replicate, counted one by one from rcg_common.cuh's row
 # functions: K3 25 (t, its max, t - m1 and its exp sum: 4; ghat's compare,
 # multiply, add and select, its max, ghat - m and its exp sum: 7; gamma 2,
@@ -249,7 +269,8 @@ def _check_em(torch, KE, L, em_inputs, label):
     done = KE.em_step_kernel(L, *em_inputs, done=torch.ones((), dtype=torch.bool, device=L.device))
     if any(bool(o.any()) for o in done):
         raise AssertionError(f"{label} em_step: a pass with its done flag set returned nonzeros")
-    return max(float((lse - lse_w).abs().max()), float((col - col_w).abs().max()), gap)
+    lse_err = float((lse - lse_w).abs().max()) if lse.numel() else 0.0  # E = 0: no rows
+    return max(lse_err, float((col - col_w).abs().max()), gap)
 
 
 def _em_batch_inputs(torch, L, B, seed, pad_rows=0):
@@ -621,16 +642,45 @@ def phase_build():
     _build.load()
     _say(f"build: {seconds:.3f} s (one nvcc per source in parallel, then a link; K1-K6, "
          f"T1-T3) -> {os.path.relpath(path, REPO)}")
+    t = time.perf_counter()
     pipes = exp_cost.measure()
+    measure_s = time.perf_counter() - t
     exp_instr = {4: pipes["float32"]["fp32"], 8: pipes["float64"]["fp64"]}
     _say(f"one exp in SASS (msweep_tpu_torch/exp_cost.py), instructions by pipe: {pipes}; "
          f"the bounds count {exp_instr[4]} float32 / {exp_instr[8]} float64 instructions")
     if not (exp_instr[4] > 0 and exp_instr[8] > 0):
         raise AssertionError(f"no floating-point instruction counted in an exp: {pipes}")
-    return exp_instr
+    # K6's one-chunk build counted in the built library's SASS: its hot
+    # loop's instructions by pipe are its per-pipe bound's (phase 3).
+    census = {}
+    t = time.perf_counter()
+    counted_all = exp_cost.census("em_step_batch_rep_kernelI")  # one disassembly, both types
+    _say(f"SASS counts: the exp probe {measure_s:.1f} s, K6's census "
+         f"{time.perf_counter() - t:.1f} s")
+    for csize, mangled in ((4, "em_step_batch_rep_kernelIffE"), (8, "em_step_batch_rep_kernelIddE")):
+        (name, counted), = ((n, c) for n, c in counted_all.items() if mangled in n)
+        census[csize] = counted
+        _say(f"K6 one-chunk build ({name[:40]}...) in SASS: whole function {counted['all']}; "
+             f"hot loop {counted['loop']}, {counted['loop_shared_bytes']} shared-memory bytes "
+             f"and {counted['loop_shfl']} shuffles a trip")
+        if not (counted["loop"]["fp32"] + counted["loop"]["fp64"]) > 0:
+            raise AssertionError(f"no floating-point instruction in K6's hot loop: {counted}")
+    return exp_instr, census
 
 
-def phase_kernels(torch, exp_instr):
+def _k6_issue(torch, KEB, E, G, B, lsize, csize, census, suffix):
+    """The time K6's own instructions take to issue, by pipe
+    (exp_cost.em_batch_issue_ms), from its census: (ms, the term that
+    binds, {term: ms}) on this card's SMs at the boost clock."""
+    from msweep_tpu_torch import exp_cost
+
+    info = KEB.kernel_info(suffix, G, torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exp_cost.em_batch_issue_ms(E, G, B, lsize, csize, census[csize],
+                                      info["rows_at_once"], sms, HBM_BYTES_PER_S)
+
+
+def phase_kernels(torch, exp_instr, census):
     _say("== phase 3: kernels against their plain versions on the card")
     from msweep_tpu_torch.ops import em_batch_kernels as KEB
     from msweep_tpu_torch.ops import em_kernels as KE
@@ -665,6 +715,28 @@ def phase_kernels(torch, exp_instr):
                 _say(f"  ok E={E} G={G} {suffix}: max abs err " + ", ".join(line)
                      + "; K3/K4 replicates = K1/K2 bits, K6 replicates = K5 bits")
             del inputs
+    # Their float64 exp (rcg_common.cuh exp_sel) is CUDA's, bit for bit.
+    n = 3 << 30
+    nbad, first = KE.exp_check(n, torch.device("cuda"))
+    _say(f"  K5's and K6's float64 exp against CUDA's exp: {n} arguments, {nbad} differ"
+         + (f" (first: exp_sel({first[0]!r}) = {first[1]!r}, exp {first[2]!r})" if nbad else ""))
+    if nbad:
+        raise AssertionError("the EM passes' exp is not CUDA's exp")
+    # K5 and K6 on the rows they share: E not a multiple of the tile, E
+    # below a wave's ranges, E = 0, G of one chunk in 3, 511, 512.
+    for i, (E, G, scale) in enumerate(EM_SHAPES):
+        for ld, suffix in KE.INSTANTIATIONS.items():
+            L, counts = _inputs(torch, E, G, ld, seed=6000 + i)[:2]
+            L = L * scale
+            n = KE.ranges(suffix, E, G, L.device)
+            line = [f"em_step {_check_em(torch, KE, L, _em_inputs(torch, L, counts, 7000 + i), f'E={E} G={G} {suffix}'):.3e}"]
+            for B in EM_BATCH_SIZES:
+                em_in = _em_batch_inputs(torch, L, B, 8000 + i)
+                line.append(f"B={B} em_step_batch "
+                            f"{_check_em_batch(torch, KE, KEB, L, em_in, f'E={E} G={G} {suffix} B={B}'):.3e}")
+            _say(f"  ok E={E} G={G} x{scale} {suffix} on {n} shared row ranges: max abs err "
+                 + ", ".join(line) + "; K6 replicates = K5 bits")
+            del L, counts
     record = {}
     E, G = E_FULL, G_FULL
     _say(f"  times at E={E} G={G} (CUDA events, cold L2: the matrix is larger than L2)")
@@ -721,11 +793,21 @@ def phase_kernels(torch, exp_instr):
             )
             k5x8 = _time_ms(torch, lambda: [KE.em_step_kernel(L, *c) for c in cols8], 5)
             info = KEB.kernel_info(suffix, G, torch.cuda.current_device())
-            _say(f"  em_step_batch {suffix} at G={G}, B=8: {times['em_step_batch'][0]:.4f} ms "
-                 f"against 8 K5 passes over the same columns {k5x8:.4f} ms "
-                 f"({k5x8 / times['em_step_batch'][0]:.3f}x); {info['registers']} registers, "
-                 f"{info['spill_bytes']} local (spilled) bytes a thread, tile of "
-                 f"{info['tile_rows']} staged rows, {info['ctas_per_sm']} CTAs an SM")
+            k6_ms = times["em_step_batch"][0]
+            ims, term, terms = _k6_issue(torch, KEB, E, G, 8, L.element_size(), csize, census,
+                                         suffix)
+            _say(f"  em_step_batch {suffix} at G={G}, B=8: {k6_ms:.4f} ms against 8 K5 passes "
+                 f"over the same columns {k5x8:.4f} ms ({k5x8 / k6_ms:.3f}x); "
+                 f"{info['registers']} registers, {info['spill_bytes']} local (spilled) bytes "
+                 f"a thread, tile of {info['tile_rows']} staged rows, {info['ctas_per_sm']} "
+                 f"CTAs an SM, {info['rows_at_once']} rows a warp at once, "
+                 f"{KE.ranges(suffix, E, G, L.device)} row ranges shared with K5")
+            _say(f"  em_step_batch {suffix} issue of its own SASS (a diagnostic, not its bound): "
+                 f"{ims:.4f} ms on its busiest term, {term} ("
+                 + ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) + " ms), "
+                 f"{ims / k6_ms:.3f} of the kernel's time; its bound "
+                 f"{bounds['em_step_batch'][0]:.4f} ms ({bounds['em_step_batch'][1]}: 6 "
+                 f"operations and an exp a cell)")
             del em_b, cols8
             B = 8
             b_in = _batch_inputs(torch, E, G, B, ld, 8)
@@ -1723,24 +1805,33 @@ def main() -> int:
         return 1
 
     t0 = time.perf_counter()
-    smi = phase_device(torch)
-    exp_instr = phase_build()
-    record = phase_kernels(torch, exp_instr)
-    phase_cli(torch)
-    lik, build_s = _community()
-    launches, full = phase_full(torch, lik, build_s)
-    launches.update(phase_em(torch, lik))
-    boot_launches, rep0 = phase_bootstrap(torch, lik)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    smi = timed("1", phase_device, torch)
+    exp_instr, census = timed("2", phase_build)
+    record = timed("3", phase_kernels, torch, exp_instr, census)
+    timed("4", phase_cli, torch)
+    lik, build_s = timed("community", _community)
+    launches, full = timed("5", phase_full, torch, lik, build_s)
+    launches.update(timed("6", phase_em, torch, lik))
+    boot_launches, rep0 = timed("7", phase_bootstrap, torch, lik)
     launches.update(boot_launches)
-    launches.update(phase_prof(torch))
-    phase_trace(torch)
-    phase_shard(torch, lik, full)
-    phase_api(torch, lik, full, rep0)
-    launches.update(phase_em_bootstrap(torch, lik))
+    launches.update(timed("8", phase_prof, torch))
+    timed("9", phase_trace, torch)
+    timed("10", phase_shard, torch, lik, full)
+    timed("11", phase_api, torch, lik, full, rep0)
+    launches.update(timed("12", phase_em_bootstrap, torch, lik))
     loaded = sorted(m for m in set(sys.modules) - START_MODULES
                     if m.split(".")[0] in ("jax", "jaxlib", "msweep_tpu"))
     if loaded:
         raise AssertionError(f"the run loaded JAX or the JAX package: {loaded[:10]}")
+    _say("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     _say(f"total {time.perf_counter() - t0:.1f} s")
 
     src = "msweep_tpu_torch/csrc/"

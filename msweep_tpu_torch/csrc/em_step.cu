@@ -21,6 +21,12 @@
 // bound (~1.7 ms at 2,301,952 x 512) below the bytes bound (2.83 ms): the
 // FP64 exp chain's latency and the registers it takes are what the design
 // must hide.  The design is K2's: a CTA walks its contiguous rows in tiles.
+// The row ranges are the ones K6 (em_step_batch.cu) runs on, so that its
+// replicates give K5's bits: lcm(K5's CTAs an SM, K6's) x SMs ranges of
+// whole tiles (rcg_common.cuh split_rows, ops/rcg_kernels.py em_ranges), a
+// whole number of waves for both kernels.  So K5's numerics follow K6's
+// build: a change to K6's CTAs an SM (em_step_batch.cu RepBuild::ctas)
+// moves K5's row ranges, and K5's bits by float64 round-off.
 // Rows of one chunk (G <= 512) run an instantiation compiled for one chunk
 // at three CTAs an SM, in float64 too, so that one CTA's exps overlap the
 // others' loads and phase B.  Phase A: a warp holds its row in registers
@@ -34,8 +40,9 @@
 // logL and no second exp; a thread keeps its two columns in registers
 // across the tiles and writes them once at the end.  Three CTAs leave 85
 // registers a thread, so logtheta is read from L1 for each row rather
-// than held in registers, and the float64 exps skip CUDA's slow path
-// below -746, where exp is 0 (rcg_common.cuh uexp).
+// than held in registers.  The exps are K6's, rcg_common.cuh row_exps: in
+// float64 CUDA's exp with its branches taken as selects, so a row's 16
+// exps interleave whatever their arguments.
 // Wider rows run the general instantiation at two CTAs an SM, on tiles of
 // at least 8 rows, one a warp, whatever G: phase A merges a row's chunks
 // into its max and exp sum; then, a slab of columns at a time (as many
@@ -53,8 +60,7 @@
 // writes zeros (its rows of lse, its partials) and returns without reading
 // logL, so a converged state inside a chunk of inference/em.py costs
 // launches, not passes.
-// Left for later work: prefetching the warp's next row, and one read of
-// logL for B bootstrap replicates.
+// Left for later work: prefetching the warp's next row.
 #include "rcg_common.cuh"
 
 namespace rcg {
@@ -73,7 +79,7 @@ __global__ void __launch_bounds__(THREADS, EM_CTAS<ONE_CHUNK>)
 em_step_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
                const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
                const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
-               int64_t rows_per_cta, int tile, int64_t slab,
+               int64_t tq, int64_t tr, int tile, int64_t slab,
                CT* __restrict__ lse_out, double* __restrict__ part_scalar,
                double* __restrict__ part_cols) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -82,7 +88,7 @@ em_step_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nch = ONE_CHUNK ? 1 : (int)((G + CHUNK - 1) / CHUNK);
   int64_t lo, hi;
-  cta_rows(E, rows_per_cta, lo, hi);
+  split_rows(blockIdx.x, E, tq, tr, lo, hi);
   double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
   for (int64_t g = threadIdx.x; g < G; g += THREADS) cols[g] = 0.0;
   if (done != nullptr && *done) {  // the same on every thread of the CTA
@@ -206,7 +212,6 @@ static cudaError_t em_plan(int64_t G, const void*& kernel, int& tile, int64_t& s
 template <typename LT, typename CT>
 static int launch_em_step(const void* logL, const void* counts, const void* lse_prev,
                           const void* logtheta, const void* done, int64_t E, int64_t G,
-                          int64_t rows_per_cta,
                           int64_t n_cta, void* lse_out, void* part_scalar, void* part_cols,
                           void* out_scalar, void* out_cols, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -217,7 +222,9 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
   cudaError_t err = em_plan<LT, CT>(G, kernel, tile, slab, smem);
   if (err != cudaSuccess) return (int)err;
   bool vec = vector_rows(logL, G);
-  void* args[] = {&logL, &counts, &lse_prev, &logtheta, &done, &E, &G, &vec, &rows_per_cta,
+  int64_t tq = 0, tr = 0;
+  split_plan(E, n_cta, tq, tr);
+  void* args[] = {&logL, &counts, &lse_prev, &logtheta, &done, &E, &G, &vec, &tq, &tr,
                   &tile, &slab, &lse_out, &part_scalar, &part_cols};
   err = cudaLaunchKernel(kernel, dim3((unsigned)n_cta), dim3(THREADS), args, smem, s);
   if (err != cudaSuccess) return (int)err;
@@ -254,23 +261,61 @@ static int info_em_step(int64_t G, int* out) {
   return 0;
 }
 
+// The EM passes' exp (rcg_common.cuh exp_sel) against CUDA's exp, bit for
+// bit (two NaNs count as equal), over n arguments: a third spread evenly
+// over [-760, 760], a third drawn over exp's slow range [-746.5, -707.5],
+// a third any 64 bits (hashed from the index).  *bad counts those that
+// differ; first holds the first one met, exp_sel's value and exp's.
+__device__ __forceinline__ uint64_t mix64(uint64_t x) {
+  x ^= x >> 33;
+  x *= 0xff51afd7ed558ccdULL;
+  x ^= x >> 33;
+  x *= 0xc4ceb9fe1a85ec53ULL;
+  return x ^ (x >> 33);
+}
+__global__ void exp_sel_check(int64_t n, unsigned long long* bad, double* first) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    double a;
+    if (i % 3 == 0) a = -760.0 + 1520.0 * ((double)(i / 3) / (double)(n / 3 + 1));
+    else if (i % 3 == 1) a = -746.5 + 39.0 * ((double)(mix64(i) >> 11) * 0x1.0p-53);
+    else a = __longlong_as_double((long long)mix64(i));
+    const double x = exp_sel(a), y = exp(a);
+    if (__double_as_longlong(x) != __double_as_longlong(y) && !(x != x && y != y) &&
+        atomicAdd(bad, 1ULL) == 0) {
+      first[0] = a;
+      first[1] = x;
+      first[2] = y;
+    }
+  }
+}
+
 }  // namespace rcg
+
+// bad: one zeroed unsigned 64-bit count, first: three doubles, on the
+// device (rcg::exp_sel_check).  Returns a CUDA error.
+extern "C" int em_exp_check(int64_t n, void* bad, void* first, void* stream) {
+  rcg::exp_sel_check<<<2048, 256, 0, (cudaStream_t)stream>>>(n, (unsigned long long*)bad,
+                                                            (double*)first);
+  return (int)cudaGetLastError();
+}
 
 // Plain C entry points, one per instantiation (matrix type _ compute type).
 // counts is (E,) in the matrix type; lse_prev, lse_out (E,) and logtheta
 // (G,) in the compute type; done is one bool or null (never done).
-// part_scalar is scratch of n_cta doubles,
+// n_cta is the number of row ranges (rcg_common.cuh split_plan), one CTA
+// each.  part_scalar is scratch of n_cta doubles,
 // part_cols of n_cta * G; out_scalar is one double (ddot), out_cols G
 // doubles (colsum); all on the device.  em_step_info_* fills five ints
 // (rcg::info_em_step).  Both return a CUDA error.
 #define EM_STEP_ENTRY(NAME, LT, CT)                                                          \
   extern "C" int NAME(const void* logL, const void* counts, const void* lse_prev,            \
                       const void* logtheta, const void* done, int64_t E, int64_t G,          \
-                      int64_t rows_per_cta, int64_t n_cta, void* lse_out, void* part_scalar, \
-                      void* part_cols, void* out_scalar, void* out_cols, void* stream) {     \
-    return rcg::launch_em_step<LT, CT>(logL, counts, lse_prev, logtheta, done, E, G,         \
-                                       rows_per_cta, n_cta, lse_out, part_scalar, part_cols, \
-                                       out_scalar, out_cols, stream);                        \
+                      int64_t n_cta, void* lse_out, void* part_scalar, void* part_cols,      \
+                      void* out_scalar, void* out_cols, void* stream) {                      \
+    return rcg::launch_em_step<LT, CT>(logL, counts, lse_prev, logtheta, done, E, G, n_cta,  \
+                                       lse_out, part_scalar, part_cols, out_scalar, out_cols, \
+                                       stream);                                              \
   }                                                                                          \
   extern "C" int NAME##_info(int64_t G, int* out) { return rcg::info_em_step<LT, CT>(G, out); }
 

@@ -14,107 +14,269 @@
 // taken as K5 takes them: c / den once a row, exp(t - max) once a cell
 // (rcg_common.cuh em_chunk_stats / em_row_stats, em_chunk_w), the row
 // terms in the compute type, the sums across rows in float64 in row
-// order.  The grid is K5's (its CTAs an SM give the same row ranges,
-// ops/em_batch_kernels.py), so replicate b gives K5's bits on column b.
-// A replicate flagged in done[] does no row work and returns zeros.
+// order.  K6 runs on the row ranges K5 runs on (split_rows; their count
+// is lcm(K5's CTAs an SM, K6's) x SMs, ops/em_kernels.py ranges), so
+// replicate b gives K5's bits on column b.  A replicate flagged in done[]
+// does no row work and returns zeros.
 //
 // Bound by compute: logL is read from device memory once a pass for all
 // B replicates, but each replicate has its own theta, so each cell takes
-// one exp a replicate (B exps a cell; 18 FP64 instructions each in
-// float64).  Rows of one chunk (G <= 512) run K4's layout: CTA (x, y)
-// stages K5's row range y tile by tile in shared memory (cp.async,
-// walk_staged_rows), and warp w walks every row for replicate 8x + w with
-// that replicate's logtheta in registers, adding each row's ddot term
-// (lane 0, in a register) and each column's weight (the lane's 16 columns,
-// in its own slice of shared memory) in float64 in row order: the adds K5
-// makes, with no tile of weights and no barrier between the exps and the
-// column adds.  Three things the first version lacked, each timed with
-// msweep_tpu_torch/time_batch_kernels.py --em at 2,301,952 x 512, B = 8, on
-// an NVIDIA H100 80GB HBM3 at 700 W: the exps are sexp, which has uexp's
-// values but no branch around each exp, so a warp interleaves its row's 16
-// exps (float64 54.3 -> 45.8 ms); the column sums in shared memory rather
-// than registers leave room for three CTAs an SM in float32 and two in
-// float64 (12.0 -> 11.0 and 45.8 -> 37.8 ms); and a row's count and
-// lse_prev are read one row ahead (11.0 -> 10.5 and 37.8 -> 35.1 ms).
-// That is 0.32 / 0.38 of the operations bound: each warp's row is a chain
-// of dependent steps (max and sum across lanes, division, log) that 24 /
-// 16 warps an SM do not hide.  Wider rows run a warp per row, as
-// K5's general build does: each warp takes its row's statistics for each
-// replicate of a block of rb in turn (rereading the row's later chunks
-// from L1/L2), then, a slab of columns at a time, the weights of the
-// block's replicates go through a (rb, WARPS, slab) tile of shared memory
-// and one thread per column adds them in row order into the CTA's (B, G)
-// float64 partials.  No atomics; the second stage sums the partials in
-// CTA order, as K5's does.  Any E >= 0, G >= 1, B >= 1.
+// one exp a replicate.  Rows of one chunk (G <= 512) run K4's layout: CTA
+// (x, y) stages range y's rows tile by tile in shared memory (cp.async,
+// walk_staged_tiles), each row CHUNK cells apart with -inf beyond G, and
+// warp w walks every row for replicate 8x + w, two rows at once.  Its
+// design, each step timed with msweep_tpu_torch/time_batch_kernels.py
+// --em at 2,301,952 x 512, B = 8, on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md section 6; float64 / float32 ms a pass):
+// - First: no branch around the exp (a select instead), the column sums
+//   in the lane's own slice of shared memory, three CTAs an SM in float32
+//   and two in float64, a row's count read ahead: 54.3 -> 35.1 / 12.1 ->
+//   10.5.
+// - Row ranges in whole waves: K5's 396 ranges were one and a half waves of
+//   K6's two float64 CTAs an SM; 792 are three (35.1 -> 30.2, the first
+//   kernel on them).
+// - A row's loads from shared memory without a test of G (the pad cells),
+//   and a max by one compare and a select (vmax): fmax in float64 is a
+//   compare, two selects and a NaN fix-up (-> 26.4 at one row at once).
+// - The float64 exp with no branch: CUDA's exp branches to a slow path for
+//   |x| >= 708.4, and the branch serialises a row's 16 exps; its fast path
+//   alone, with exp itself out of line for the rare cells beyond it, let
+//   the 16 interleave (-> 23.1).
+// - Two rows at once: their maxes, exps, sums across the warp and
+//   divisions interleave, and both rows' weights are added into each
+//   column sum in one read and write of it; the row's log and ddot term
+//   are taken once a row in groups of 32 (-> 22.5 / 9.4).
+// - The exp shared with K5 (rcg_common.cuh row_exps): every branch of
+//   CUDA's exp as a select, so no cell takes a slow path.  A long EM fit
+//   drives its vanishing groups into exp's slow range, where the
+//   out-of-line exp cost 31.9 ms a pass, and K5 twice its time; this one
+//   takes 26.5 there and on fresh inputs alike.
+// Wider rows run a warp per row,
+// as K5's general build does: each warp takes its row's statistics for
+// each replicate of a block of rb in turn (rereading the row's later
+// chunks from L1/L2), then, a slab of columns at a time, the weights of
+// the block's replicates go through a (rb, WARPS, slab) tile of shared
+// memory and one thread per column adds them in row order into the
+// CTA's (B, G) float64 partials.  No atomics; the second stage sums the
+// partials in CTA order, as K5's does.  Any E >= 0, G >= 1, B >= 1.
+#include <type_traits>
+
 #include "rcg_common.cuh"
 
 namespace rcg {
 
-// CTAs an SM of the one-chunk build: three in float32 (at most 85
-// registers a thread) and two in float64 (128), so that a warp's serial
-// steps (the row's max and sum across lanes, its division and log) overlap
-// other warps' exps.  K5's grid at G <= 512 is three CTAs an SM, one wave at
-// three; float64 at 1 CTA an SM (190 registers) ran 1.2x slower, and at
-// three it spilled.
+// The one-chunk build's settings by compute type, each timed with
+// msweep_tpu_torch/time_batch_kernels.py --em (PERF.md section 6): CTAs an
+// SM, rows a warp takes at once, and whether the replicate's logtheta row
+// lives in the lane's slice of shared memory (float64, where its 32
+// registers a thread would spill) or in registers.
 template <typename CT>
-struct RepCtas {
-  static constexpr int value = sizeof(CT) == 4 ? 3 : 2;
+struct RepBuild {
+  static constexpr int ctas = sizeof(CT) == 4 ? 3 : 2;
+  static constexpr int rows = 2;
+  static constexpr bool lt_shared = sizeof(CT) == 8;
 };
-// Shared memory of the lanes' column sums: slot i of lane l of warp w at
-// (w * NPL + i) * 32 + l, a slice no other lane touches.
-constexpr int64_t REP_COLS_BYTES = (int64_t)WARPS * NPL * 32 * sizeof(double);
+// Shared memory ahead of the staged rows: the lanes' float64 column sums,
+// then (lt_shared) their logtheta; slot i of lane l of warp w at (w * NPL
+// + i) * 32 + l, a slice no other lane touches.
+constexpr int64_t REP_COLS_BYTES = (int64_t)WARPS * CHUNK * (int64_t)sizeof(double);
+template <typename CT>
+__host__ __device__ constexpr int64_t rep_fixed_bytes() {
+  return REP_COLS_BYTES +
+         (RepBuild<CT>::lt_shared ? (int64_t)WARPS * CHUNK * (int64_t)sizeof(CT) : 0);
+}
 
-// Rows of one chunk: warp w of CTA (x, y) is replicate 8x + w over row range y.
+// A max with fmax's value on numbers (the sign of a zero aside, which no
+// output of the pass sees): one compare and a select, where fmax in
+// float64 takes a compare, two selects and a NaN fix-up.
+template <typename T>
+__device__ __forceinline__ T vmax(T a, T b) {
+  return a > b ? a : b;
+}
+
+// The max across the warp and the sum across the warp of R rows at once:
+// warp_max's and warp_sum's butterflies, the rows' shuffles interleaved.
+template <int R, typename T>
+__device__ __forceinline__ void warp_max_rows(T (&x)[R]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    T y[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) y[k] = __shfl_xor_sync(0xffffffffu, x[k], o);
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = vmax(x[k], y[k]);
+  }
+}
+template <int R, typename T>
+__device__ __forceinline__ void warp_sum_rows(T (&x)[R]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    T y[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) y[k] = __shfl_xor_sync(0xffffffffu, x[k], o);
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] += y[k];
+  }
+}
+
+// The max of a lane's NPL cells, as a tree.
+template <typename CT>
+__device__ __forceinline__ CT lane_max(const CT (&x)[NPL]) {
+  CT a[NPL / 2];
+#pragma unroll
+  for (int i = 0; i < NPL / 2; ++i) a[i] = vmax(x[2 * i], x[2 * i + 1]);
+#pragma unroll
+  for (int n = NPL / 4; n > 0; n >>= 1) {
+#pragma unroll
+    for (int i = 0; i < n; ++i) a[i] = vmax(a[2 * i], a[2 * i + 1]);
+  }
+  return a[0];
+}
+
+// The lane's NPL cells of a staged row whose cells beyond G hold -inf in
+// shared memory (rows CHUNK cells apart): load_row_chunk's slots, in
+// 16-byte loads with no test of G.
+template <typename LT>
+__device__ __forceinline__ void load_row_padded(const LT* row, int lane, LT (&L)[NPL]) {
+#pragma unroll
+  for (int j = 0; j < NPL / 4; ++j) {
+    const LT* p = row + 128 * j + 4 * lane;
+    if constexpr (sizeof(LT) == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p);
+      L[4 * j] = q.x; L[4 * j + 1] = q.y; L[4 * j + 2] = q.z; L[4 * j + 3] = q.w;
+    } else {
+      const double2 a = reinterpret_cast<const double2*>(p)[0];
+      const double2 b = reinterpret_cast<const double2*>(p)[1];
+      L[4 * j] = a.x; L[4 * j + 1] = a.y; L[4 * j + 2] = b.x; L[4 * j + 3] = b.y;
+    }
+  }
+}
+
+// Rows of one chunk: warp w of CTA (x, y) is replicate 8x + w over row
+// range y.  The warp takes RepBuild::rows rows at once, each with K5's
+// values (em_row_stats at nch = 1: t = logL + logtheta, its max, exp(t -
+// max) and their sum in slot order, then across the warp by warp_sum's
+// butterfly; crow = cnt / den; w = e * crow), so the rows' serial steps
+// (the max and the sum across the warp, the division) overlap one
+// another, and adds both rows' weights into each column sum, in row
+// order, in one read and write of it.  Rows go in
+// groups of 32 from the range's start: lane j holds row g0 + j's count
+// and lse_prev, read when the group starts (the rows take their count
+// from it by a shuffle), and keeps its max and exp sum once the row has
+// passed; at the group's end each lane takes its row's log and writes its
+// lse, and the group's ddot terms are added in row order.  So the log is
+// taken once a row, off the rows' chain, and the values and the order of
+// every sum are K5's.
 template <typename LT, typename CT>
-__global__ void __launch_bounds__(THREADS, RepCtas<CT>::value)
+__global__ void __launch_bounds__(THREADS, RepBuild<CT>::ctas)
 em_step_batch_rep_kernel(const LT* __restrict__ logL, const LT* __restrict__ countsT,
                          const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
                          const bool* __restrict__ done, int64_t E, int64_t G, int64_t B,
-                         bool vec, int64_t rows_per_cta, int tile, CT* __restrict__ lse_out,
+                         bool vec, int64_t tq, int64_t tr, int tile, CT* __restrict__ lse_out,
                          double* __restrict__ part_scalar, double* __restrict__ part_cols) {
+  using Build = RepBuild<CT>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  double* __restrict__ csum = reinterpret_cast<double*>(smem) + warp * NPL * 32 + lane;
-  LT* ring = reinterpret_cast<LT*>(smem + REP_COLS_BYTES);  // staged rows of logL
+  double* __restrict__ cs = reinterpret_cast<double*>(smem) + warp * NPL * 32 + lane;
+  CT* __restrict__ lt_sh = reinterpret_cast<CT*>(smem + REP_COLS_BYTES) + warp * NPL * 32 + lane;
+  // Staged rows of logL, CHUNK cells apart, -inf beyond G.
+  LT* ring = reinterpret_cast<LT*>(smem + rep_fixed_bytes<CT>());
+  for (int64_t i = threadIdx.x; i < 2 * tile * (CHUNK - G); i += THREADS)
+    ring[i / (CHUNK - G) * CHUNK + G + i % (CHUNK - G)] = neg_inf<LT>();
   const int64_t b = (int64_t)blockIdx.x * WARPS + warp;
   const bool live = b < B && !(done != nullptr && done[b]);
   int64_t lo, hi;
-  range_rows(blockIdx.y, E, rows_per_cta, lo, hi);
+  split_rows(blockIdx.y, E, tq, tr, lo, hi);
   if (b < B && !live) {  // a done replicate: zeros in its column of lse
     for (int64_t e = lo + lane; e < hi; e += 32) lse_out[e * B + b] = 0;
   }
-  double acc = 0.0;  // lane 0's is the replicate's
+  double acc = 0.0;  // the replicate's ddot partial, the same on every lane
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) csum[i * 32] = 0.0;
+  for (int i = 0; i < NPL; ++i) cs[i * 32] = 0.0;
   if (__syncthreads_or(live)) {
-    LT L[NPL];
-    CT lt[NPL], w[NPL];
-    // The row's count and lse_prev are read one row ahead: a read at the
-    // row's end would hold the warp for a trip to L2 every row.
-    CT cnt_n = 0, lp_n = 0;
+    CT lt[NPL];
+    // Lane j's row of the group [g0, g0 + 32): count, lse_prev, max, exp sum.
+    int64_t g0 = lo;
+    CT cnt_g = 0, lp_g = 0, m_g = 0, den_g = 1;
+    auto start_group = [&]() {
+      const int64_t e = g0 + lane;
+      cnt_g = e < hi ? (CT)countsT[e * B + b] : (CT)0;
+      lp_g = e < hi ? lse_prev[e * B + b] : (CT)0;
+    };
+    auto end_group = [&](int n) {
+      const CT lse = m_g + clog(den_g);
+      double term = 0.0;
+      if (lane < n) {
+        lse_out[(g0 + lane) * B + b] = lse;
+        term = (double)(cnt_g * (lse - lp_g));
+      }
+      // Lane 0's order; a lane past n adds +0, which leaves acc (never -0).
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc += __shfl_sync(0xffffffffu, term, j);
+      g0 += 32;
+      start_group();
+    };
     if (live) {
       load_cols(logtheta + b * G, 0, G, lane, lt);
-      if (lo < hi) {
-        cnt_n = (CT)countsT[lo * B + b];
-        lp_n = lse_prev[lo * B + b];
+      if (Build::lt_shared) {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) lt_sh[i * 32] = lt[i];
       }
+      start_group();
     }
-    walk_staged_rows(ring, logL, G, vec, lo, hi, tile, live, [&](int64_t e, const LT* row) {
-      const CT cnt = cnt_n, lp = lp_n;
-      if (e + 1 < hi) {
-        cnt_n = (CT)countsT[(e + 1) * B + b];
-        lp_n = lse_prev[(e + 1) * B + b];
+    // R rows from row e0 at `rows` (shared memory), all in the group.
+    auto take_rows = [&](auto r_const, int64_t e0, const LT* rows) {
+      constexpr int R = decltype(r_const)::value;
+      CT x[R][NPL], m[R], den[R], crow[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        LT L[NPL];
+        load_row_padded(rows + (int64_t)k * CHUNK, lane, L);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          x[k][i] = (CT)L[i] + (Build::lt_shared ? lt_sh[i * 32] : lt[i]);
+        m[k] = lane_max(x[k]);
       }
-      CT m = neg_inf<CT>(), den = 0;
-      load_row_shared(row, G, vec, lane, L);
-      em_chunk_stats<SExp>(L, lt, m, den, w);
-      const CT crow = cnt / den, lse = m + clog(den);
-      if (lane == 0) {
-        lse_out[e * B + b] = lse;
-        acc += (double)(cnt * (lse - lp));
+      warp_max_rows<R>(m);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] - m[k];
+        row_exps(x[k]);
+        den[k] = 0;
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) den[k] += x[k][i];
+      }
+      warp_sum_rows<R>(den);
+      const int slot = (int)(e0 - g0);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        crow[k] = __shfl_sync(0xffffffffu, cnt_g, slot + k) / den[k];
+        if (lane == slot + k) {
+          m_g = m[k];
+          den_g = den[k];
+        }
       }
 #pragma unroll
-      for (int i = 0; i < NPL; ++i) csum[i * 32] += (double)(w[i] * crow);
+      for (int i = 0; i < NPL; ++i) {
+        double s = cs[i * 32];
+#pragma unroll
+        for (int k = 0; k < R; ++k) s += (double)(x[k][i] * crow[k]);
+        cs[i * 32] = s;
+      }
+    };
+    walk_staged_tiles(ring, logL, G, (int64_t)CHUNK, vec, lo, hi, tile, live,
+                      [&](int64_t t0, int nr, const LT* rows) {
+      int r = 0;
+      while (r < nr) {
+        const int end = (int)(g0 + 32 - t0 < nr ? g0 + 32 - t0 : nr);  // the group's rows here
+        for (; r + Build::rows <= end; r += Build::rows)
+          take_rows(std::integral_constant<int, Build::rows>{}, t0 + r,
+                    rows + (int64_t)r * CHUNK);
+        for (; r < end; ++r)
+          take_rows(std::integral_constant<int, 1>{}, t0 + r, rows + (int64_t)r * CHUNK);
+        if (t0 + r == g0 + 32 || t0 + r == hi) end_group((int)(t0 + r - g0));
+      }
     });
   }
   if (b < B) {
@@ -122,7 +284,7 @@ em_step_batch_rep_kernel(const LT* __restrict__ logL, const LT* __restrict__ cou
 #pragma unroll
     for (int i = 0; i < NPL; ++i) {
       const int64_t g = slot_col(0, i, lane);
-      if (g < G) cols[g] = csum[i * 32];
+      if (g < G) cols[g] = cs[i * 32];
     }
     if (lane == 0) part_scalar[(int64_t)blockIdx.y * B + b] = acc;
   }
@@ -135,7 +297,7 @@ __global__ void __launch_bounds__(THREADS, MinCtas<CT>::value)
 em_step_batch_kernel(const LT* __restrict__ logL, const LT* __restrict__ countsT,
                      const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
                      const bool* __restrict__ done, int64_t E, int64_t G, int64_t B, bool vec,
-                     int64_t rows_per_cta, int rb, int64_t slab, CT* __restrict__ lse_out,
+                     int64_t tq, int64_t tr, int rb, int64_t slab, CT* __restrict__ lse_out,
                      double* __restrict__ part_scalar, double* __restrict__ part_cols) {
   extern __shared__ __align__(16) unsigned char smem[];
   CT* __restrict__ wt = reinterpret_cast<CT*>(smem);  // (rb, WARPS, slab) weights
@@ -143,7 +305,7 @@ em_step_batch_kernel(const LT* __restrict__ logL, const LT* __restrict__ countsT
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nch = (int)((G + CHUNK - 1) / CHUNK);
   int64_t lo, hi;
-  cta_rows(E, rows_per_cta, lo, hi);
+  split_rows(blockIdx.x, E, tq, tr, lo, hi);
   double* __restrict__ acc = part_scalar + (int64_t)blockIdx.x * B;
   double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * B * G;
   for (int64_t i = threadIdx.x; i < B * G; i += THREADS) cols[i] = 0.0;
@@ -227,18 +389,18 @@ template <typename LT, typename CT>
 static cudaError_t em_batch_plan(int64_t G, const void*& kernel, int& tile, int& rb,
                                  int64_t& slab, size_t& smem) {
   if (G <= CHUNK) {
-    // A ring of two tiles of staged rows beside the column sums in the
+    // A ring of two tiles of staged rows beside the lanes' slices in the
     // build's share of the SM, at most TILE_ROWS rows a tile.
     static WtileBudget cache;
     kernel = (const void*)em_step_batch_rep_kernel<LT, CT>;
     rb = WARPS;
     slab = G;
     int64_t budget = 0;
-    cudaError_t err = wtile_budget(kernel, RepCtas<CT>::value, cache, budget);
-    const int64_t buf = 2 * G * (int64_t)sizeof(LT);
-    const int64_t t = (budget - REP_COLS_BYTES) / buf;
+    cudaError_t err = wtile_budget(kernel, RepBuild<CT>::ctas, cache, budget);
+    const int64_t buf = 2 * CHUNK * (int64_t)sizeof(LT);
+    const int64_t t = (budget - rep_fixed_bytes<CT>()) / buf;
     tile = (int)(t < TILE_ROWS ? t : TILE_ROWS);
-    smem = (size_t)(REP_COLS_BYTES + tile * buf);
+    smem = (size_t)(rep_fixed_bytes<CT>() + tile * buf);
     if (err == cudaSuccess && tile < 1) err = cudaErrorInvalidConfiguration;
     return err;
   }
@@ -262,7 +424,7 @@ static cudaError_t em_batch_plan(int64_t G, const void*& kernel, int& tile, int&
 template <typename LT, typename CT>
 static int launch_em_step_batch(const void* logL, const void* countsT, const void* lse_prev,
                                 const void* logtheta, const void* done, int64_t E, int64_t G,
-                                int64_t B, int64_t rows_per_cta, int64_t n_cta, void* lse_out,
+                                int64_t B, int64_t n_cta, void* lse_out,
                                 void* part_scalar, void* part_cols, void* out_scalar,
                                 void* out_cols, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -273,14 +435,16 @@ static int launch_em_step_batch(const void* logL, const void* countsT, const voi
   cudaError_t err = em_batch_plan<LT, CT>(G, kernel, tile, rb, slab, smem);
   if (err != cudaSuccess) return (int)err;
   bool vec = vector_rows(logL, G);
+  int64_t tq = 0, tr = 0;
+  split_plan(E, n_cta, tq, tr);
   if (G <= CHUNK) {
     void* args[] = {&logL, &countsT, &lse_prev, &logtheta, &done, &E, &G, &B, &vec,
-                    &rows_per_cta, &tile, &lse_out, &part_scalar, &part_cols};
+                    &tq, &tr, &tile, &lse_out, &part_scalar, &part_cols};
     err = cudaLaunchKernel(kernel, dim3((unsigned)((B + WARPS - 1) / WARPS), (unsigned)n_cta),
                            dim3(THREADS), args, smem, s);
   } else {
     void* args[] = {&logL, &countsT, &lse_prev, &logtheta, &done, &E, &G, &B, &vec,
-                    &rows_per_cta, &rb, &slab, &lse_out, &part_scalar, &part_cols};
+                    &tq, &tr, &rb, &slab, &lse_out, &part_scalar, &part_cols};
     err = cudaLaunchKernel(kernel, dim3((unsigned)n_cta), dim3(THREADS), args, smem, s);
   }
   if (err != cudaSuccess) return (int)err;
@@ -296,8 +460,8 @@ static int launch_em_step_batch(const void* logL, const void* countsT, const voi
   return (int)cudaGetLastError();
 }
 
-// out = kernel_info of the build G columns run: registers, spilled bytes,
-// tile rows and CTAs an SM.
+// out = kernel_info of the build G columns run (registers, spilled bytes,
+// tile rows, CTAs an SM), then the rows a warp takes at once.
 template <typename LT, typename CT>
 static int info_em_step_batch(int64_t G, int* out) {
   const void* kernel = nullptr;
@@ -306,6 +470,7 @@ static int info_em_step_batch(int64_t G, int* out) {
   size_t smem = 0;
   const cudaError_t err = em_batch_plan<LT, CT>(G, kernel, tile, rb, slab, smem);
   if (err != cudaSuccess) return (int)err;
+  out[4] = G <= CHUNK ? RepBuild<CT>::rows : 1;
   return (int)kernel_info(kernel, tile, smem, out);
 }
 
@@ -314,18 +479,19 @@ static int info_em_step_batch(int64_t G, int* out) {
 // Plain C entry points, one per instantiation (matrix type _ compute type).
 // countsT is (E, B) in the matrix type; lse_prev and lse_out (E, B) and
 // logtheta (B, G) in the compute type; done is (B,) bool or null (no
-// replicate done).  part_scalar is scratch of n_cta * B doubles, part_cols
-// of n_cta * B * G; out_scalar is B doubles (ddot), out_cols B * G
-// (colsum); all on the device.  *_info fills four ints
+// replicate done).  n_cta is the number of row ranges (rcg_common.cuh
+// split_plan).  part_scalar is scratch of n_cta * B doubles, part_cols of
+// n_cta * B * G; out_scalar is B doubles (ddot), out_cols B * G (colsum);
+// all on the device.  *_info fills five ints
 // (rcg::info_em_step_batch).  Both return a CUDA error.
 #define EM_STEP_BATCH_ENTRY(NAME, LT, CT)                                                       \
   extern "C" int NAME(const void* logL, const void* countsT, const void* lse_prev,             \
                       const void* logtheta, const void* done, int64_t E, int64_t G, int64_t B, \
-                      int64_t rows_per_cta, int64_t n_cta, void* lse_out, void* part_scalar,    \
-                      void* part_cols, void* out_scalar, void* out_cols, void* stream) {        \
+                      int64_t n_cta, void* lse_out, void* part_scalar, void* part_cols,         \
+                      void* out_scalar, void* out_cols, void* stream) {                         \
     return rcg::launch_em_step_batch<LT, CT>(logL, countsT, lse_prev, logtheta, done, E, G, B, \
-                                             rows_per_cta, n_cta, lse_out, part_scalar,        \
-                                             part_cols, out_scalar, out_cols, stream);         \
+                                             n_cta, lse_out, part_scalar, part_cols,           \
+                                             out_scalar, out_cols, stream);                    \
   }                                                                                             \
   extern "C" int NAME##_info(int64_t G, int* out) {                                             \
     return rcg::info_em_step_batch<LT, CT>(G, out);                                             \

@@ -116,18 +116,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         for name in ("rcg_norm_batch", "rcg_update_batch"):
             # G, out (4 ints)
             sig(f"{name}_{suffix}_info", _I64, _P)
-        # logL, counts, lse_prev, logtheta, done, E, G, rows_per_cta, n_cta,
-        # lse_out, part_scalar, part_cols, out_scalar, out_cols, stream
-        sig(f"em_step_{suffix}", _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P,
-            _P, _P)
+        # logL, counts, lse_prev, logtheta, done, E, G, n_cta, lse_out,
+        # part_scalar, part_cols, out_scalar, out_cols, stream
+        sig(f"em_step_{suffix}", _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P)
         # G, out (5 ints)
         sig(f"em_step_{suffix}_info", _I64, _P)
-        # logL, countsT, lse_prev, logtheta, done, E, G, B, rows_per_cta, n_cta,
-        # lse_out, part_scalar, part_cols, out_scalar, out_cols, stream
-        sig(f"em_step_batch_{suffix}", _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P,
-            _P, _P, _P, _P)
-        # G, out (4 ints)
+        # logL, countsT, lse_prev, logtheta, done, E, G, B, n_cta, lse_out,
+        # part_scalar, part_cols, out_scalar, out_cols, stream
+        sig(f"em_step_batch_{suffix}", _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
+            _P, _P, _P)
+        # G, out (5 ints)
         sig(f"em_step_batch_{suffix}_info", _I64, _P)
+    # n, bad (one uint64), first (three doubles), stream
+    sig("em_exp_check", _I64, _P, _P, _P)
     for name in ("prof_read", "prof_exp", "prof_exp2"):
         # x, s, E, G, rows_per_cta, n_cta, out, stream
         sig(f"{name}_f32", _P, _P, _I64, _I64, _I64, _I64, _P, _P)

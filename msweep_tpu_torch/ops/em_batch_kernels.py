@@ -15,8 +15,9 @@ what K5 (ops/em_kernels.py em_step) returns for that replicate alone:
 The JAX package runs this as the vmapped XLA branch of its EM step
 (msweep_tpu/inference/em.py fit_em_batch), with no kernel of its own; the
 kernel reads logL once for all B replicates where B serial K5 passes read
-it B times.  It runs on K5's grid and row functions, so replicate b gives
-K5's bits on column b (chip_smoke.py phase 3 holds it to that).
+it B times.  It runs on K5's row ranges (em_kernels.ranges) with K5's row
+arithmetic, so replicate b gives K5's bits on column b (chip_smoke.py
+phase 3 holds it to that).
 
 ``done`` (an optional (B,) bool tensor on logL's device) marks replicates
 that have stopped: the kernel does no row work for them, and every output
@@ -30,18 +31,16 @@ the plain version, a CUDA tensor launches the kernel
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import em_kernels
-from .rcg_kernels import F64, _grid, _on_cpu, _raise_on
+from .rcg_kernels import F64, _on_cpu, _raise_on
 
 # matrix dtype (= compute dtype) -> suffix of the C entry points: K5's.
 INSTANTIATIONS = em_kernels.INSTANTIATIONS
 
 # Cap on the (n_cta, B, G) float64 column partials: past it the grid
-# shrinks below K5's (only at B * G beyond ~330k at full size), and the
+# shrinks below K5's (only at B * G beyond ~170k at full size), and the
 # replicates' sums then leave K5's row ranges: the same values within
 # float64 round-off, no longer K5's bits.
 PART_BYTES = 1 << 30
@@ -97,19 +96,16 @@ def _check_inputs(logL, countsT, lse_prev, logtheta, done):
 def kernel_info(suffix: str, G: int, device_index: int) -> dict:
     """K6's build at G columns on a card: registers and local (spilled)
     bytes a thread, rows of its tile (staged rows of logL for G <= 512,
-    rows of weights beyond) and CTAs resident an SM, from the runtime."""
-    from ._build import load
-
-    out = (ctypes.c_int * 4)()
-    with torch.cuda.device(device_index):
-        rc = getattr(load(), f"em_step_batch_{suffix}_info")(G, out)
-    _raise_on(rc, "em_step_batch_info")
-    return dict(zip(("registers", "spill_bytes", "tile_rows", "ctas_per_sm"), out))
+    rows of weights beyond), CTAs resident an SM, from the runtime, and
+    the rows a warp takes at once."""
+    return dict(zip(("registers", "spill_bytes", "tile_rows", "ctas_per_sm", "rows_at_once"),
+                    em_kernels.read_info(f"em_step_batch_{suffix}_info", G, device_index, 5)))
 
 
 def em_step_batch_kernel(logL, countsT, lse_prev, logtheta, done=None):
-    """K6 on the card (msweep_tpu_torch/csrc/em_step_batch.cu), on K5's
-    grid: K5's CTAs an SM at G columns give its row ranges."""
+    """K6 on the card (msweep_tpu_torch/csrc/em_step_batch.cu), on the row
+    ranges K5 takes at G columns (em_kernels.ranges), fewer where the
+    partials would pass PART_BYTES."""
     from ._build import load
 
     suffix, countsT, lse_prev, logtheta, done = _check_inputs(logL, countsT, lse_prev,
@@ -117,10 +113,7 @@ def em_step_batch_kernel(logL, countsT, lse_prev, logtheta, done=None):
     E, G = logL.shape
     B = countsT.shape[1]
     dev = logL.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    ctas = em_kernels.kernel_info(suffix, G, index)["ctas_per_sm"]
-    rows_per_cta, n_cta = _grid(E, dev, max_cta=max(1, PART_BYTES // (8 * B * G)),
-                                ctas_per_sm=ctas)
+    n_cta = em_kernels.ranges(suffix, E, G, dev, max_ranges=PART_BYTES // (8 * B * G))
     lse = torch.empty((E, B), dtype=logL.dtype, device=dev)
     part_s = torch.empty((n_cta, B), dtype=F64, device=dev)
     part_c = torch.empty((n_cta, B, G), dtype=F64, device=dev)
@@ -130,9 +123,8 @@ def em_step_batch_kernel(logL, countsT, lse_prev, logtheta, done=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(load(), f"em_step_batch_{suffix}")(
             logL.data_ptr(), countsT.data_ptr(), lse_prev.data_ptr(), logtheta.data_ptr(),
-            None if done is None else done.data_ptr(), E, G, B, rows_per_cta, n_cta,
-            lse.data_ptr(), part_s.data_ptr(), part_c.data_ptr(), out_s.data_ptr(),
-            out_c.data_ptr(), stream,
+            None if done is None else done.data_ptr(), E, G, B, n_cta, lse.data_ptr(),
+            part_s.data_ptr(), part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr(), stream,
         )
     _raise_on(rc, "em_step_batch")
     em_step_batch_kernel.launches += 1

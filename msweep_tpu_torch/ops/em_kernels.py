@@ -32,7 +32,7 @@ import functools
 
 import torch
 
-from .rcg_kernels import F64, _block_rows, _flag, _grid, _on_cpu, _raise_on, _unless_done
+from .rcg_kernels import F64, _block_rows, _flag, _on_cpu, _raise_on, _unless_done, em_ranges
 
 # matrix dtype (= compute dtype) -> suffix of the C entry points.
 INSTANTIATIONS = {torch.float32: "f32_f32", torch.float64: "f64_f64"}
@@ -87,34 +87,70 @@ def _check_inputs(logL, counts, lse_prev, logtheta):
 
 
 @functools.cache
+def read_info(entry: str, G: int, device_index: int, n: int) -> tuple[int, ...]:
+    """The n ints that the library's `entry` (an *_info function) gives for
+    the build G columns run, on a card."""
+    from ._build import load
+
+    out = (ctypes.c_int * n)()
+    with torch.cuda.device(device_index):
+        rc = getattr(load(), entry)(G, out)
+    _raise_on(rc, entry)
+    return tuple(out)
+
+
 def kernel_info(suffix: str, G: int, device_index: int) -> dict:
     """K5's build and launch at G columns on a card: registers and local
     (spilled) bytes a thread, rows and columns of its tile of weights and
     CTAs resident an SM, from the runtime (em_step.cu info_em_step)."""
-    from ._build import load
-
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device_index):
-        rc = getattr(load(), f"em_step_{suffix}_info")(G, out)
-    _raise_on(rc, "em_step_info")
-    info = dict(zip(("registers", "spill_bytes", "tile_rows", "tile_cols",
-                         "ctas_per_sm"), out))
+    info = dict(zip(("registers", "spill_bytes", "tile_rows", "tile_cols", "ctas_per_sm"),
+                    read_info(f"em_step_{suffix}_info", G, device_index, 5)))
     if info["ctas_per_sm"] < 1:
         raise RuntimeError(f"em_step_{suffix} cannot run at G={G}: {info}")
     return info
 
 
+def ranges(suffix: str, E: int, G: int, device: torch.device,
+           max_ranges: int | None = None) -> int:
+    """The row ranges that K5 and K6 (ops/em_batch_kernels.py) share at
+    (E, G) in one type on `device` (rcg_kernels.em_ranges): a whole number
+    of waves of K5's build and of K6's, whose CTAs an SM come from the
+    runtime (kernel_info here, K6's *_info entry there)."""
+    from ._build import tile_rows
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    ctas = (kernel_info(suffix, G, index)["ctas_per_sm"],
+            read_info(f"em_step_batch_{suffix}_info", G, index, 5)[3])  # K6's ctas_per_sm
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return em_ranges(E, tile_rows(), sms, ctas, max_ranges)
+
+
+def exp_check(n: int, device: torch.device) -> tuple[int, tuple[float, float, float] | None]:
+    """The EM passes' float64 exp (csrc/rcg_common.cuh exp_sel, K5's and
+    K6's) against CUDA's exp on the card, bit for bit, over n arguments
+    (csrc/em_step.cu exp_sel_check): (how many differ, (argument, exp_sel,
+    exp) of the first that does, or None)."""
+    from ._build import load
+
+    bad = torch.zeros((1,), dtype=torch.int64, device=device)
+    first = torch.zeros((3,), dtype=F64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(load().em_exp_check(n, bad.data_ptr(), first.data_ptr(), stream),
+                  "em_exp_check")
+    nbad = int(bad.item())
+    return nbad, (tuple(first.tolist()) if nbad else None)
+
+
 def em_step_kernel(logL, counts, lse_prev, logtheta, done=None):
-    """K5 on the card (msweep_tpu_torch/csrc/em_step.cu), on a grid of as
-    many CTAs as the card holds at once."""
+    """K5 on the card (msweep_tpu_torch/csrc/em_step.cu), on the row ranges
+    it shares with K6 (ranges)."""
     from ._build import load
 
     suffix, counts, lse_prev, logtheta = _check_inputs(logL, counts, lse_prev, logtheta)
     E, G = logL.shape
     dev = logL.device
-    ctas = kernel_info(suffix, G, dev.index if dev.index is not None else
-                       torch.cuda.current_device())["ctas_per_sm"]
-    rows_per_cta, n_cta = _grid(E, dev, ctas_per_sm=ctas)
+    n_cta = ranges(suffix, E, G, dev)
     done, done_ptr = _flag(done, dev)
     lse = torch.empty((E,), dtype=logL.dtype, device=dev)
     part_s = torch.empty((n_cta,), dtype=F64, device=dev)
@@ -125,8 +161,8 @@ def em_step_kernel(logL, counts, lse_prev, logtheta, done=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(load(), f"em_step_{suffix}")(
             logL.data_ptr(), counts.data_ptr(), lse_prev.data_ptr(), logtheta.data_ptr(),
-            done_ptr, E, G, rows_per_cta, n_cta, lse.data_ptr(), part_s.data_ptr(),
-            part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr(), stream,
+            done_ptr, E, G, n_cta, lse.data_ptr(), part_s.data_ptr(), part_c.data_ptr(),
+            out_s.data_ptr(), out_c.data_ptr(), stream,
         )
     _raise_on(rc, "em_step")
     em_step_kernel.launches += 1

@@ -41,6 +41,8 @@ or two, inside the rtol they are held to on the card (1e-5 in float32,
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..utils import PAD_THRESHOLD
@@ -196,6 +198,28 @@ def _grid(E: int, device: torch.device, max_cta: int | None = None,
     n = min(sms * ctas_per_sm, tiles, max_cta or tiles)
     rows_per_cta = -(-tiles // n) * tile
     return rows_per_cta, max(1, -(-E // rows_per_cta))
+
+
+def em_ranges(E: int, tile: int, sms: int, ctas: tuple[int, ...],
+              max_ranges: int | None = None) -> int:
+    """Row ranges of the EM passes, one CTA each (a CTA column of K6's
+    replicates): lcm(ctas) * sms, where `ctas` holds the CTAs an SM of
+    every build that runs on them (K5's and K6's at the same G and type),
+    so that the ranges are a whole number of waves of each; at most one a
+    tile of `tile` rows, and at most `max_ranges` (K6's cap on its
+    partials).  K5 and K6 take the same count, so replicate b of K6 adds
+    its rows in K5's ranges (range_bounds)."""
+    n = min(math.lcm(*ctas) * sms, max(1, -(-E // tile)))
+    return max(1, min(n, max_ranges)) if max_ranges is not None else n
+
+
+def range_bounds(E: int, tile: int, n: int) -> list[tuple[int, int]]:
+    """The rows [lo, hi) of each of n ranges: with ceil(E / tile) tiles (1
+    at E = 0) = q * n + r, range b holds q + 1 tiles for b < r and q
+    beyond, in order, cut at E (rcg_common.cuh split_plan, split_rows)."""
+    q, r = divmod(max(1, -(-E // tile)), n)
+    starts = [(b * q + min(b, r)) * tile for b in range(n + 1)]
+    return [(min(E, lo), min(E, hi)) for lo, hi in zip(starts, starts[1:])]
 
 
 def _check_inputs(logL, counts, compute_dtype, vectors):

@@ -21,9 +21,11 @@ prints its seconds (host clock, the fit alone), iterations per replicate
 and K3/K4 launches.
 
 With --em it times the EM bootstrap's pass instead: K6 (ops/em_batch_kernels.py,
-where the tree has it) against B single K5 passes over the replicates'
-columns, in both types, on countsT, lse_prev near each replicate's row
-logsumexps and logtheta with ~20% of each theta at 0; and with --em --fit
+where the tree has it, with its one-chunk build's census by pipe where the
+tree's exp_cost.py counts it) against B single K5 passes over the
+replicates' columns, in both types, on countsT, lse_prev near each replicate's row
+logsumexps and logtheta with ~20% of each theta at 0 (--tail spreads those
+groups' logtheta, as a long fit leaves them); and with --em --fit
 it runs chip_smoke.py phase 12: fit_em_batch of the same community in
 float64 for a fixed 128 iterations (bench mode, two chunks of 64), timed
 after a one-iteration warm-up, with the objectives per replicate (to
@@ -156,9 +158,10 @@ def _em_fit(torch, args):
                 **{fn.__name__: fn.launches for fn in counters})
 
 
-def _em_inputs(torch, L, B, seed):
+def _em_inputs(torch, L, B, seed, tail=0.0):
     """countsT (E, B), lse_prev (E, B) near each replicate's row
-    logsumexps and logtheta (B, G) with ~20% of each theta at 0."""
+    logsumexps and logtheta (B, G) with ~20% of each theta at 0 (with
+    `tail`, those groups' logtheta spread over [-tail, 0] instead)."""
     from msweep_tpu_torch.utils import NEG
 
     dev, f64 = L.device, torch.float64
@@ -170,6 +173,9 @@ def _em_inputs(torch, L, B, seed):
     theta[:, 0] = 1.0
     theta = theta / theta.sum(dim=1, keepdim=True)
     logtheta = torch.where(theta > 0, torch.log(theta), torch.full_like(theta, NEG))
+    if tail > 0:
+        logtheta = torch.where(theta > 0, logtheta,
+                               -tail * torch.rand(B, G, generator=g, device=dev, dtype=f64))
     lse = torch.empty((E, B), dtype=f64, device=dev)
     block = max(1, (1 << 24) // G)
     for b in range(B):
@@ -179,19 +185,27 @@ def _em_inputs(torch, L, B, seed):
     return countsT, lse_prev.to(L.dtype), logtheta.to(L.dtype)
 
 
+# K6's one-chunk build in each type, as its mangled name begins.
+REP_KERNEL = {"float32": "em_step_batch_rep_kernelIffE",
+              "float64": "em_step_batch_rep_kernelIddE"}
+
+
 def _em_passes(torch, args):
-    """K6 against B single K5 passes, one JSON line a type."""
+    """K6 against B single K5 passes, one JSON line a type; with the
+    tree's census (exp_cost.py), K6's one-chunk build counted by pipe."""
+    from msweep_tpu_torch import exp_cost
+
     KE, KEB = _em_modules()
     E, G = (int(v) for v in args.shape.lower().split("x"))
     B = args.B
     dev = torch.cuda.current_device()
     for dtype in (torch.float32, torch.float64):
         L = _inputs(torch, E, G, 1, dtype, args.seed)[0]
-        cT, lp, lt = _em_inputs(torch, L, B, args.seed)
+        cT, lp, lt = _em_inputs(torch, L, B, args.seed, args.tail)
         cols = [(cT[:, b].contiguous(), lp[:, b].contiguous(), lt[b].contiguous())
                 for b in range(B)]
         suffix = KE.INSTANTIATIONS[dtype]
-        rec = dict(tree=args.tree, E=E, G=G, B=B, dtype=str(dtype).split(".")[-1],
+        rec = dict(tree=args.tree, E=E, G=G, B=B, tail=args.tail, dtype=str(dtype).split(".")[-1],
                    k5_x_B_ms=_time_ms(torch, lambda: [KE.em_step_kernel(L, *c) for c in cols],
                                       args.reps),
                    em_step=KE.kernel_info(suffix, G, dev))
@@ -205,6 +219,8 @@ def _em_passes(torch, args):
                                              and torch.equal(colsum[0], one[1])
                                              and float(ddot[0]) == float(one[2])),
                        colsum_sum=float(colsum.sum()), ddot_sum=float(ddot.sum()))
+            if hasattr(exp_cost, "census"):  # the one-chunk build's SASS, by pipe
+                rec["census"] = exp_cost.census(REP_KERNEL[rec["dtype"]])
         print(json.dumps(rec), flush=True)
         del L, cT, lp, lt, cols
         torch.cuda.empty_cache()
@@ -220,6 +236,10 @@ def main(argv=None) -> int:
                     help="time K6 against B K5 passes (with --fit: phase 12's EM bootstrap)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=8)
+    ap.add_argument("--tail", type=float, default=0.0,
+                    help="with --em: the groups at theta 0 spread their logtheta over "
+                         "[-TAIL, 0] in place of NEG, as a long EM fit leaves them, so that "
+                         "cells reach exp's slow range (t - max in (-746, -708.4])")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path[0] = tree  # the tree's package, not this file's directory

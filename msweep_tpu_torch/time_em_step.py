@@ -26,7 +26,7 @@ import subprocess
 import sys
 
 
-def _inputs(torch, E, G, dtype, seed):
+def _inputs(torch, E, G, dtype, seed, tail=0.0):
     """(logL, counts, lse_prev, logtheta) on the card, built in blocks of
     rows in float64 and cast to `dtype`."""
     dev, f64 = torch.device("cuda"), torch.float64
@@ -43,6 +43,9 @@ def _inputs(torch, E, G, dtype, seed):
     theta[0] = 1.0
     theta = theta / theta.sum()
     logtheta = torch.where(theta > 0, torch.log(theta), torch.full_like(theta, neg))
+    if tail > 0:  # the groups at 0 spread over [-tail, 0] (--tail)
+        logtheta = torch.where(theta > 0, logtheta,
+                               -tail * torch.rand(G, generator=g, device=dev, dtype=f64))
     lse = torch.empty(E, dtype=f64, device=dev)
     for lo in range(0, E, block):
         lse[lo:lo + block] = torch.logsumexp(L[lo:lo + block].to(f64) + logtheta, dim=1)
@@ -70,6 +73,10 @@ def main(argv=None) -> int:
                     help="E x G, comma-separated (default: three matrices of the same cells)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--tail", type=float, default=0.0,
+                    help="logtheta of the groups drawn at theta 0 spread over [-TAIL, 0] in "
+                         "place of NEG, as a long EM fit leaves its vanishing groups: cells then "
+                         "reach exp's slow range (t - max in (-746, -708.4])")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path[0] = tree  # the tree's package, not this file's directory
@@ -87,10 +94,11 @@ def main(argv=None) -> int:
     for shape in args.shapes.split(","):
         E, G = (int(v) for v in shape.lower().split("x"))
         for dtype in (torch.float32, torch.float64):
-            inputs = _inputs(torch, E, G, dtype, args.seed)
+            inputs = _inputs(torch, E, G, dtype, args.seed, args.tail)
             ms = _time_ms(torch, lambda: KE.em_step_kernel(*inputs), args.reps)
             lse, colsum, ddot = KE.em_step_kernel(*inputs)
-            rec = dict(tree=args.tree, E=E, G=G, dtype=str(dtype).split(".")[-1], ms=ms,
+            rec = dict(tree=args.tree, E=E, G=G, tail=args.tail, dtype=str(dtype).split(".")[-1],
+                       ms=ms,
                        lse_sum=float(lse.to(torch.float64).sum()),
                        colsum_sum=float(colsum.sum()), ddot=float(ddot))
             if hasattr(KE, "kernel_info"):

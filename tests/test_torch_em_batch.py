@@ -309,6 +309,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+def test_cuda_em_exp_is_cudas_exp(cuda_device):
+    """K5's and K6's float64 exp (rcg_common.cuh exp_sel, CUDA's exp with
+    its branches as selects) gives CUDA's exp to the bit over 3 x 2^28
+    arguments: an even sweep of [-760, 760], exp's slow range and any
+    64 bits."""
+    assert K.exp_check(3 << 28, cuda_device) == (0, None)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("E,G", [(4099, 300), (37, 33), (777, 1300), (9, 30_000)])
 @pytest.mark.parametrize("dtype", list(KB.INSTANTIATIONS))
 def test_cuda_em_batch_kernel_matches_plain(cuda_device, dtype, E, G):
@@ -343,3 +352,54 @@ def test_cuda_em_batch_kernel_matches_plain(cuda_device, dtype, E, G):
     assert torch.equal(lse_m[:, ~done], lse[:, ~done]) and not lse_m[:, done].any()
     assert torch.equal(colsum_m[~done], colsum[~done]) and not colsum_m[done].any()
     assert torch.equal(ddot_m[~done], ddot[~done]) and not ddot_m[done].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8, 13])
+@pytest.mark.parametrize("E,G", [(4099, 512), (4097, 511), (500, 3), (37, 1), (0, 512),
+                                 (25_345, 512)])
+@pytest.mark.parametrize("dtype", list(KB.INSTANTIATIONS))
+def test_cuda_one_chunk_batch_is_k5_per_replicate(cuda_device, dtype, E, G, B):
+    """K6's one-chunk build on the row ranges it shares with K5
+    (em_kernels.ranges): replicate b gives K5's bits on column b at E not
+    a multiple of the tile, at E below the ranges of a whole wave (one
+    range a tile), at E = 0 and at 792 tiles and a row; at G in 1, 3, 511
+    and 512 (scalar and 16-byte loads) and B in 1, 3, 8 and 13 (a second
+    CTA column); a rerun gives the same bits; a done mask zeroes its
+    replicates and leaves the others' bits."""
+    logL, _, _, _ = _problem(E, G, 41, np.float64)
+    args = [_t(x, dtype).to(cuda_device) for x in (logL, *_batch_step_inputs(logL, B, 41))]
+    L, cT, lp, lt = args
+    got = KB.em_step_batch_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, KB.em_step_batch_kernel(*args)))
+    lse, colsum, ddot = got
+    for b in range(B):
+        lse1, col1, dd1 = K.em_step_kernel(L, cT[:, b].contiguous(), lp[:, b].contiguous(),
+                                           lt[b].contiguous())
+        assert torch.equal(lse[:, b], lse1) and torch.equal(colsum[b], col1), b
+        assert float(ddot[b]) == float(dd1), b
+    done = torch.arange(B, device=cuda_device) % 3 == 1
+    lse_m, colsum_m, ddot_m = KB.em_step_batch_kernel(*args, done=done)
+    assert torch.equal(lse_m[:, ~done], lse[:, ~done]) and not lse_m[:, done].any()
+    assert torch.equal(colsum_m[~done], colsum[~done]) and not colsum_m[done].any()
+    assert torch.equal(ddot_m[~done], ddot[~done]) and not ddot_m[done].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,G", [(4099, 512), (777, 300)])
+@pytest.mark.parametrize("dtype", list(KB.INSTANTIATIONS))
+def test_cuda_one_chunk_batch_exp_range(cuda_device, dtype, E, G):
+    """logL times 40 (cells down to ~-1100): t - max spans each range of
+    the float64 exp, the fast one, exp's slow range (-745, -708.4] and the
+    zeros below it; every replicate still gives K5's bits on its column."""
+    logL, _, _, _ = _problem(E, G, 43, np.float64)
+    logL = logL * 40.0
+    B = 8
+    args = [_t(x, dtype).to(cuda_device) for x in (logL, *_batch_step_inputs(logL, B, 43))]
+    L, cT, lp, lt = args
+    lse, colsum, ddot = KB.em_step_batch_kernel(*args)
+    for b in range(B):
+        lse1, col1, dd1 = K.em_step_kernel(L, cT[:, b].contiguous(), lp[:, b].contiguous(),
+                                           lt[b].contiguous())
+        assert torch.equal(lse[:, b], lse1) and torch.equal(colsum[b], col1), b
+        assert float(ddot[b]) == float(dd1), b

@@ -1,0 +1,224 @@
+"""The row ranges that the EM passes K5 and K6 share, K6's SASS census, the
+time its own instructions take to issue by pipe, and its bound, on the
+CPU: pure functions of msweep_tpu_torch/ops/rcg_kernels.py,
+ops/em_kernels.py and msweep_tpu_torch/exp_cost.py (the kernels themselves run on the card:
+tests/test_torch_em_batch.py's cuda tests and chip_smoke.py phase 3)."""
+
+import contextlib
+import importlib.util
+import math
+import os
+
+import pytest
+import torch
+
+from msweep_tpu_torch import exp_cost
+from msweep_tpu_torch.ops import em_batch_kernels as KB
+from msweep_tpu_torch.ops import em_kernels as K
+from msweep_tpu_torch.ops.rcg_kernels import em_ranges, range_bounds
+
+TILE = 32  # rcg_common.cuh TILE_ROWS
+EFAEC = 2_301_952  # efaec-1's ECs
+ROWS = [0, 1, TILE - 1, TILE, TILE + 1, 792 * TILE - 1, 792 * TILE + 1, EFAEC]
+
+
+@pytest.mark.parametrize("ctas", [(3, 2), (3, 3), (2, 1)])
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_ranges_cover_the_rows_in_whole_waves(sms, ctas):
+    """The ranges cover [0, E) once and in order, each a whole number of
+    tiles but the last; their count is lcm(ctas) x sms (a whole number of
+    waves of every build) wherever E has that many tiles, else one a
+    tile."""
+    wave = math.lcm(*ctas) * sms
+    for E in ROWS:
+        n = em_ranges(E, TILE, sms, ctas)
+        tiles = -(-E // TILE)
+        assert n == (wave if tiles >= wave else max(1, tiles)), E
+        bounds = range_bounds(E, TILE, n)
+        assert len(bounds) == n
+        assert bounds[0][0] == 0 and bounds[-1][1] == E
+        for (lo, hi), (lo2, _) in zip(bounds, bounds[1:]):
+            assert lo <= hi == lo2 and lo % TILE == 0
+        sizes = [hi - lo for lo, hi in bounds[:-1]]
+        if sizes:  # balanced: tiles a range differ by at most one
+            assert max(sizes) - min(sizes) <= TILE
+
+
+@pytest.mark.parametrize("E", ROWS)
+def test_part_bytes_caps_the_range_count(E):
+    """K6's cap on its (ranges, B, G) float64 partials bounds the count
+    below the waves' and never leaves fewer than one range; under the cap
+    the count is K5's."""
+    for B, G in ((8, 512), (64, 4096), (4096, 4096), (1 << 16, 1 << 14)):
+        cap = KB.PART_BYTES // (8 * B * G)
+        n = em_ranges(E, TILE, 132, (3, 2), max_ranges=cap)
+        assert 1 <= n <= max(1, cap)
+        assert n == min(em_ranges(E, TILE, 132, (3, 2)), max(1, cap))
+        assert len(range_bounds(E, TILE, n)) == n
+
+
+def _fake_card(monkeypatch, k6_ctas=2):
+    """The CUDA calls of the K5 and K6 wrappers faked on the CPU: an H100's
+    132 SMs, the *_info entries of K5's one-chunk build (3 CTAs an SM,
+    its fifth int) and of K6's (`k6_ctas`, its fourth), and a library
+    whose em_step and em_step_batch entries record the range count each
+    launch takes.  Returns that record: [(entry, n_cta)]."""
+    from msweep_tpu_torch.ops import _build
+
+    info = {"em_step_f64_f64_info": (80, 0, 32, 512, 3),
+            "em_step_batch_f64_f64_info": (128, 0, 6, k6_ctas, 2)}
+    monkeypatch.setattr(K, "read_info", lambda entry, G, index, n: info[entry])
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {"multi_processor_count": 132}))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(_build, "tile_rows", lambda: TILE)
+    launched = []
+
+    def entry(name, n_cta_at):
+        def launch(*args):
+            launched.append((name, args[n_cta_at]))
+            return 0
+        return launch
+
+    lib = type("Lib", (), {"em_step_f64_f64": staticmethod(entry("em_step", 7)),
+                           "em_step_batch_f64_f64": staticmethod(entry("em_step_batch", 8))})
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    return launched
+
+
+def _launch_both(E, G=4, B=8):
+    """One K5 launch and one K6 launch at (E, G), B replicates, through
+    the wrappers (on the fake card)."""
+    L = torch.zeros((E, G), dtype=torch.float64)
+    K.em_step_kernel(L, torch.zeros(E, dtype=torch.float64), torch.zeros(E, dtype=torch.float64),
+                     torch.zeros(G, dtype=torch.float64))
+    KB.em_step_batch_kernel(L, torch.zeros((E, B), dtype=torch.float64),
+                            torch.zeros((E, B), dtype=torch.float64),
+                            torch.zeros((B, G), dtype=torch.float64))
+
+
+def test_k5_and_k6_take_the_same_ranges(monkeypatch):
+    """K5's and K6's wrappers launch on the same ranges, counted from their
+    *_info entries: 792 on an H100 at 3 and 2 CTAs an SM (a whole number
+    of waves of both), one a tile below that."""
+    launched = _fake_card(monkeypatch)
+    for E, n in ((792 * 2 * TILE, 792), (100, 4)):
+        launched.clear()
+        _launch_both(E)
+        assert launched == [("em_step", n), ("em_step_batch", n)]
+    assert K.ranges("f64_f64", EFAEC, 512, torch.device("cuda", 0),
+                    max_ranges=KB.PART_BYTES // (8 * 8 * 512)) == 792
+
+
+@pytest.mark.parametrize("k6_ctas,n", [(2, 792), (3, 396), (1, 396), (4, 1584)])
+def test_k5_ranges_follow_k6_build(monkeypatch, k6_ctas, n):
+    """K5's numerics follow K6's build: K5's range count is lcm(3, K6's
+    CTAs an SM) x 132, so a change to K6's CTAs an SM (em_step_batch.cu
+    RepBuild::ctas) moves K5's ranges, and its bits by round-off."""
+    launched = _fake_card(monkeypatch, k6_ctas)
+    _launch_both(792 * 4 * TILE)
+    assert launched == [("em_step", n), ("em_step_batch", n)]
+
+
+SASS = """
+\t\tFunction : _ZN3rcg24em_step_batch_rep_kernelIddEEvPKT_
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDGSTS.E.BYPASS.128 [R2], desc[UR4][R4.64] ;
+        /*0020*/                   IMAD R6, R6, 0x2, RZ ;
+        /*0030*/                   LDS.128 R8, [R2] ;
+        /*0040*/                   DADD R8, R8, R10 ;
+        /*0050*/                   DMUL R12, R8, R10 ;
+        /*0060*/                   DSETP.GTU.AND P1, PT, R8, -746, PT ;
+        /*0070*/                   SHFL.BFLY PT, R14, R8, 0x10, 0x1f ;
+        /*0080*/                   F2F.F64.F32 R16, R5 ;
+        /*0090*/                   LDS.64 R18, [R3+0x100] ;
+        /*00a0*/                   FSEL R8, R8, RZ, P1 ;
+        /*00b0*/                   STS.64 [R3+0x100], R18 ;
+        /*00c0*/               @P0 BRA 0x30 ;
+        /*00d0*/                   LDS R20, [R3] ;
+        /*00e0*/              @!P2 BRA 0xd0 ;
+        /*00f0*/                   BRA 0x40 ;
+        /*0100*/                   EXIT ;
+"""
+
+
+def test_census_classes_and_hot_loop():
+    """count puts LDS, STS, SHFL and LDGSTS on mio, F2F on convert and
+    DADD/DMUL/DSETP on fp64; the hot loop is the innermost loop closed by
+    a conditional branch back with the most floating-point instructions
+    (not the unconditional jump back from cold code, nor the loop without
+    arithmetic), and its shared bytes are 32 lanes at each access's
+    width."""
+    fn = "_ZN3rcg24em_step_batch_rep_kernelIddEEvPKT_"
+    got = exp_cost.count(SASS)[fn]
+    assert got == dict(fp32=1, fp64=3, mufu=0, convert=1, mio=6, int=1, other=5)
+    loop = exp_cost.hot_loop(exp_cost._functions(SASS)[fn])
+    assert [ins[0] for ins in loop] == list(range(0x30, 0xd0, 0x10))
+    assert exp_cost._tally(loop) == dict(fp32=1, fp64=3, mufu=0, convert=1, mio=4, int=0,
+                                         other=1)
+    assert exp_cost.shared_bytes(loop) == 32 * (16 + 8 + 8)
+    with pytest.raises(ValueError):
+        exp_cost.hot_loop(exp_cost._functions(SASS.replace("@P0 BRA", "BRA")
+                                              .replace("@!P2 BRA", "BRA"))[fn])
+
+
+# Censuses of K6's one-chunk build in the shape its SASS takes (two rows a
+# trip): float64, 24 FP64 instructions a cell and the row's division,
+# max, sum and shuffles; float32, 12 FP32 instructions, one exp (MUFU) and
+# one conversion to float64 a cell, the column sums in shared memory.
+F64_LOOP = {"loop": dict(fp32=72, fp64=808, mufu=2, convert=0, mio=120, int=90, other=10),
+            "loop_shared_bytes": 2 * 4096 + 4096 + 2 * 4096, "loop_shfl": 44}
+F32_LOOP = {"loop": dict(fp32=400, fp64=32, mufu=34, convert=32, mio=80, int=90, other=10),
+            "loop_shared_bytes": 2 * 2048 + 2 * 4096, "loop_shfl": 22}
+
+
+@pytest.mark.parametrize("csize,counted,by", [(8, F64_LOOP, "fp64"), (4, F32_LOOP, "shared")])
+def test_em_batch_bound_per_pipe(csize, counted, by):
+    """The time K6's own instructions take to issue at 2,301,952 x 512,
+    B = 8: the largest of its per-pipe terms, each the loop's instructions
+    for E * B / 2 trips at the pipe's rate on 132 SMs at 1.98 GHz, shared
+    memory at 128 B a clock, device memory at 3.35 TB/s; float64 binds on
+    FP64, float32 on shared memory, and the function names the term."""
+    E, G, B, sms, hbm = EFAEC, 512, 8, 132, 3.35e12
+    ms, got_by, terms = exp_cost.em_batch_issue_ms(E, G, B, csize, csize, counted, 2, sms, hbm)
+    assert got_by == by and ms == terms[by] == max(terms.values())
+    assert set(terms) == {"fp32", "fp64", "convert", "mufu", "shared", "bytes"}
+    clock = sms * 1.98e9
+    trips = E * B / 2
+    assert terms["fp64"] == pytest.approx(counted["loop"]["fp64"] * 32 * trips / (64 * clock) * 1e3)
+    shared = trips * (counted["loop_shared_bytes"] + 128 * counted["loop_shfl"]) + E * G * csize
+    assert terms["shared"] == pytest.approx(shared / (128 * clock) * 1e3)
+    assert terms["bytes"] == pytest.approx((E * G * csize + E * B * csize + 2 * E * B * csize
+                                            + B * G * csize + (G + 1) * B * 8 + B) / hbm * 1e3)
+    if csize == 8:  # FP64: ~14 ms, above the 2.8 ms read of the matrix
+        assert 13 < ms < 16 and terms["bytes"] < 3.5
+    else:  # shared memory, above the FP32 pipe and the conversions
+        assert terms["fp32"] < ms and terms["convert"] < ms and 3.5 < ms < 5
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("csize,counted,want", [(8, F64_LOOP, 13.3112), (4, F32_LOOP, 3.3775)])
+def test_em_batch_bound_is_the_functions(csize, counted, want):
+    """K6's bound in chip_smoke.py's kernels record is what the function
+    needs (6 operations and one exp a cell a replicate, at the compute
+    type's peak; an exp is 18 FP64 or 6 FP32 instructions), not the issue
+    time of K6's own SASS, which counts the work its design adds and so
+    lies above it."""
+    cs = _chip_smoke()
+    ms, by = cs.bound_ms("em_step_batch", EFAEC, 512, csize, csize, {4: 6, 8: 18}, 8)
+    assert by == "operations" and ms == pytest.approx(want, abs=1e-4)
+    issue = exp_cost.em_batch_issue_ms(EFAEC, 512, 8, csize, csize, counted, 2, 132,
+                                       cs.HBM_BYTES_PER_S)[0]
+    assert ms < issue
+
+

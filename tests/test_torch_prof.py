@@ -154,8 +154,8 @@ def test_exp_cost_counts_sass_by_pipe():
     from msweep_tpu_torch import exp_cost
 
     got = exp_cost.count(SASS)
-    assert got["exp_f64"] == dict(fp32=1, fp64=3, mufu=0, convert=0, other=3)
-    assert got["exp_f32"] == dict(fp32=2, fp64=0, mufu=1, convert=1, other=1)
+    assert got["exp_f64"] == dict(fp32=1, fp64=3, mufu=0, convert=0, mio=0, int=0, other=3)
+    assert got["exp_f32"] == dict(fp32=2, fp64=0, mufu=1, convert=1, mio=0, int=0, other=1)
 
 
 @pytest.fixture

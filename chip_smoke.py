@@ -24,7 +24,11 @@ Phases (each raises on failure, and the script exits non-zero):
    not a multiple of the tile, E below a wave's ranges, E = 0, G in 3, 511
    and 512 and logL times 40 (exp's slow range), every K6 replicate K5's
    bits, and their float64 exp against CUDA's exp on 3 x 2^30 arguments,
-   bit for bit; then kernel and plain times at
+   bit for bit; K6's wide build (G > 512) at 4,097 x 1,024 and 1,000 x
+   1,537, B in 1, 3, 8, 13, every replicate K5's bits, and at 1,150,976 x
+   1,024 and 287,744 x 4,096, B = 8, in both types: K5's bits, then its
+   time beside 8 K5 passes over the same columns, its bound and its
+   build; then kernel and plain times at
    2,301,952 x 512 (K3/K4/K6 at B = 8; K6 also beside 8 K5 passes over
    the same columns), each beside its bound (the larger of the bytes it
    must move at 3.35 TB/s and its operations at the data sheet's peak;
@@ -89,7 +93,11 @@ Phases (each raises on failure, and the script exits non-zero):
    held against serial fit_em_result(counts=) fits over the same
    iterations (objective and theta to the bit), ms an iteration beside
    theirs and its projection to the 5000-iteration cap; then 64 float32
-   iterations (--emprecision float).
+   iterations (--emprecision float); then the wide build's leg: B = 8,
+   float64, 32 iterations at 1,150,976 x 1,024 groups on logL and counts
+   drawn on the card as phase 3 draws them, every pass K6's wide build,
+   replicates 0 and 7 against their serial K5 fits to the bit, ms an
+   iteration and peak device memory.
 
 Each path of 5-12 sets its kernels' launch counters to 0 just before it
 runs and reads them just after.
@@ -133,6 +141,15 @@ BATCH_SIZES = (1, 3, 8, 13)  # bootstrap replicates for K3/K4 and K6
 # (a CTA column part full, and two columns).
 EM_SHAPES = [(4_097, 511, 1), (500, 3, 1), (0, 512, 1), (4_099, 512, 40)]
 EM_BATCH_SIZES = (3, 13)
+# K6's wide build (G > 512: chunk column by chunk column, three passes) at
+# B in BATCH_SIZES beyond KERNEL_SHAPES' 4,099 x 4,096, 777 x 5,000 and
+# 9 x 30,000: two whole chunk columns, and three with a one-column tail.
+WIDE_EM_SHAPES = [(4_097, 1_024), (1_000, 1_537)]
+# K6's wide build timed at B = 8 beside 8 K5 passes over the same columns:
+# efaec-1's 1,178,599,424 cells at 1,024 and 4,096 groups.  Phase 12 fits
+# the first for WIDE_FIT_ITERS iterations.
+WIDE_TIMED = [(1_150_976, 1_024), (287_744, 4_096)]
+WIDE_FIT_ITERS = 32
 SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 # What the parent tree's fits gave on the card (iterations, objective):
 # phase 5's and phase 11's rcg fit and 64 float64 EM iterations from
@@ -680,6 +697,46 @@ def _k6_issue(torch, KEB, E, G, B, lsize, csize, census, suffix):
                                       info["rows_at_once"], sms, HBM_BYTES_PER_S)
 
 
+def _time_wide(torch, KE, KEB, exp_instr):
+    """K6's wide build at WIDE_TIMED, B = 8, in both types: every replicate
+    K5's bits at full size (_check_em_batch), then its ms a pass (CUDA
+    events) beside 8 K5 passes over the same columns, its bound and share
+    of it, and its build (registers, spills, tile, CTAs an SM: the
+    extremes of its three passes; chunk columns) and row ranges.  Returns
+    the kernels record's entry for float64 at G = 1,024, the shape phase
+    12 fits: {"em_step_batch_wide": {...}}."""
+    record = {}
+    dev = torch.cuda.current_device()
+    for E, G in WIDE_TIMED:
+        for ld, suffix in KE.INSTANTIATIONS.items():
+            L = _inputs(torch, E, G, ld, seed=9)[0]
+            em_b = _em_batch_inputs(torch, L, 8, 9)
+            err = _check_em_batch(torch, KE, KEB, L, em_b, f"E={E} G={G} {suffix} B=8")
+            cols8 = [(em_b[0][:, b].contiguous(), em_b[1][:, b].contiguous(), em_b[2][b])
+                     for b in range(8)]
+            k6_ms = _time_ms(torch, lambda: KEB.em_step_batch_kernel(L, *em_b), 10)
+            k5x8 = _time_ms(torch, lambda: [KE.em_step_kernel(L, *c) for c in cols8], 5)
+            bms, by = bound_ms("em_step_batch", E, G, L.element_size(), L.element_size(),
+                               exp_instr, 8)
+            info = KEB.kernel_info(suffix, G, dev)
+            _say(f"  em_step_batch {suffix} wide build at E={E} G={G}, B=8: {k6_ms:.4f} ms "
+                 f"against 8 K5 passes over the same columns {k5x8:.4f} ms "
+                 f"({k5x8 / k6_ms:.3f}x); bound {bms:.4f} ms ({by}), share of bound "
+                 f"{bms / k6_ms:.3f}; {info['registers']} registers, {info['spill_bytes']} local "
+                 f"(spilled) bytes a thread, tile of {info['tile_rows']} staged rows, "
+                 f"{info['ctas_per_sm']} CTAs an SM (the extremes of its three passes), "
+                 f"{info['chunk_columns']} chunk columns, {KE.ranges(suffix, E, G, L.device)} row "
+                 f"ranges shared with K5; max abs err {err:.3e}")
+            if (E, G, ld) == (*WIDE_TIMED[0], torch.float64):
+                plain_ms = _time_ms(torch, lambda: KEB.em_step_batch_plain(L, *em_b), 1)
+                record["em_step_batch_wide"] = dict(ms=k6_ms, plain_ms=plain_ms,
+                                                    max_abs_err=err, bound_ms=bms, bound_by=by,
+                                                    library_ms=None)
+            del L, em_b, cols8
+            torch.cuda.empty_cache()
+    return record
+
+
 def phase_kernels(torch, exp_instr, census):
     _say("== phase 3: kernels against their plain versions on the card")
     from msweep_tpu_torch.ops import em_batch_kernels as KEB
@@ -737,7 +794,20 @@ def phase_kernels(torch, exp_instr, census):
             _say(f"  ok E={E} G={G} x{scale} {suffix} on {n} shared row ranges: max abs err "
                  + ", ".join(line) + "; K6 replicates = K5 bits")
             del L, counts
-    record = {}
+    for i, (E, G) in enumerate(WIDE_EM_SHAPES):
+        for ld, suffix in KE.INSTANTIATIONS.items():
+            L, counts = _inputs(torch, E, G, ld, seed=6100 + i)[:2]
+            n = KE.ranges(suffix, E, G, L.device)
+            nc = KEB.kernel_info(suffix, G, torch.cuda.current_device())["chunk_columns"]
+            line = [f"em_step {_check_em(torch, KE, L, _em_inputs(torch, L, counts, 7100 + i), f'E={E} G={G} {suffix}'):.3e}"]
+            for B in BATCH_SIZES:
+                em_in = _em_batch_inputs(torch, L, B, 8100 + i)
+                line.append(f"B={B} em_step_batch "
+                            f"{_check_em_batch(torch, KE, KEB, L, em_in, f'E={E} G={G} {suffix} B={B}'):.3e}")
+            _say(f"  ok E={E} G={G} {suffix}, K6's wide build ({nc} chunk columns) on {n} shared "
+                 "row ranges: max abs err " + ", ".join(line) + "; K6 replicates = K5 bits")
+            del L, counts
+    record = _time_wide(torch, KE, KEB, exp_instr)
     E, G = E_FULL, G_FULL
     _say(f"  times at E={E} G={G} (CUDA events, cold L2: the matrix is larger than L2)")
     for (ld, cd), suffix in K.INSTANTIATIONS.items():
@@ -1771,7 +1841,7 @@ def phase_em_bootstrap(torch, lik):
          f"{serial_b / batch_ms:.3f}x; "
          f"projection to the 5000-iteration cap, not measured: batch {batch_ms * 5:.1f} s, "
          f"serial {serial_b * 5:.1f} s")
-    del p64
+    del p64, r  # a fit result keeps its problem (gamma is lazy)
     torch.cuda.empty_cache()
 
     p32 = pack_problem(lik, dtype=torch.float32, device=dev)  # --emprecision float
@@ -1791,9 +1861,71 @@ def phase_em_bootstrap(torch, lik):
         raise AssertionError("float32 EM bootstrap thetas are not distributions")
     del p32
     torch.cuda.empty_cache()
+    launches["em_step_batch_wide"] = _em_bootstrap_wide(torch, counters)
     _say(f"  phase 12 {time.perf_counter() - t0:.1f} s")
     return {"em_step_batch_kernel": launches["em_step_batch_kernel"],
-            "em_step_batch_f32": launches["em_step_batch_f32"]}
+            "em_step_batch_f32": launches["em_step_batch_f32"],
+            "em_step_batch_wide": launches["em_step_batch_wide"]}
+
+
+def _em_bootstrap_wide(torch, counters):
+    """Phase 12's G = 1,024 leg: fit_em_batch, B = 8, float64, for
+    WIDE_FIT_ITERS iterations in bench mode (one chunk) at WIDE_TIMED[0],
+    on logL and counts drawn on the card as phase 3 draws them (_inputs),
+    alpha 1: every iteration one K6 pass of its wide build and no K5;
+    replicates 0 and 7 against their serial K5 fits (fit_em_result(counts=))
+    to the bit.  Returns K6's launches."""
+    from msweep_tpu_torch.core.sample import BootstrapResampler
+    from msweep_tpu_torch.inference import fit_em_batch, fit_em_result
+    from msweep_tpu_torch.inference.mixture import bound_const
+    from msweep_tpu_torch.inference.pack import DeviceProblem
+    from msweep_tpu_torch.utils import PAD_THRESHOLD
+
+    (E, G), B, iters = WIDE_TIMED[0], 8, WIDE_FIT_ITERS
+    L, counts = _inputs(torch, E, G, torch.float64, seed=9)[:2]
+    host_counts = counts.cpu().numpy()
+    p = DeviceProblem(shards=[(L, counts)], rows=[(0, E)],
+                      alpha=torch.ones(G, dtype=torch.float64, device=L.device),
+                      valid=L[0] > PAD_THRESHOLD, n_ecs=E, n_groups=G,
+                      bound_const=bound_const(host_counts, np.ones(G)))
+    batch = BootstrapResampler(host_counts, seed=7).resample_batch(B)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(tol=-1.0, max_iters=iters, chunk=iters)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tb, ib, ob = fit_em_batch(p, batch, **kw)
+    tb, ib, ob = tb.cpu(), ib.tolist(), ob.cpu()
+    fit_s = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    k6 = launches["em_step_batch_kernel"]
+    _say(f"  G={G} leg: E={E}, B={B}, float64, {iters} iterations (phase 3's draw, alpha 1): "
+         f"fit_em_batch {fit_s:.3f} s, {fit_s * 1e3 / iters:.4f} ms an iteration (with the init "
+         f"and final passes), iterations {ib}, peak device memory {peak / 2**30:.3f} GiB (logL "
+         f"{L.numel() * 8 / 2**30:.3f}); launches {launches}")
+    if ib != [iters] * B or k6 != iters + 2:
+        raise AssertionError(f"the G={G} EM bootstrap did not run {iters} lockstep iterations "
+                             "on K6")
+    if launches["em_step_kernel"] or launches["em_step_plain"] or launches["em_step_batch_plain"]:
+        raise AssertionError(f"the G={G} EM bootstrap launched K5 or a plain version: {launches}")
+    if not torch.isfinite(tb).all() or float((tb.sum(dim=1) - 1).abs().max()) > 1e-9:
+        raise AssertionError(f"G={G} EM bootstrap thetas are not distributions")
+    for b in (0, B - 1):
+        r = fit_em_result(p, counts=batch[b], **kw)
+        th = r.theta.cpu()
+        same = r.n_iters == ib[b] and r.objective == float(ob[b]) and torch.equal(th, tb[b])
+        _say(f"  G={G} replicate {b}: serial K5 fit (counts=) {r.n_iters} iterations, objective "
+             f"{r.objective!r}, batch {float(ob[b])!r}; max |theta gap| "
+             f"{float((th - tb[b]).abs().max()):.3e}; equal to the bit: {same}")
+        if not same:
+            raise AssertionError(f"replicate {b} of the G={G} EM bootstrap differs from its "
+                                 "serial fit")
+    del p, L, counts, r
+    torch.cuda.empty_cache()
+    return k6
 
 
 def main() -> int:
@@ -1849,6 +1981,9 @@ def main() -> int:
          "em_step_batch_kernel"),
         ("em_step_batch_f32", "em_step_batch.cu", "msweep_tpu/inference/em.py:130",
          "em_step_batch_f32"),
+        # K6's wide build (G > 512), float64, timed and fitted at 1,150,976 x 1,024.
+        ("em_step_batch_wide", "em_step_batch.cu", "msweep_tpu/inference/em.py:130",
+         "em_step_batch_wide"),
         ("prof_read", "prof_sweeps.cu", "tools/prof_kernels.py:118", "prof_read"),
         ("prof_exp", "prof_sweeps.cu", "tools/prof_kernels.py:178", "prof_exp"),
         ("prof_exp2", "prof_sweeps.cu", "tools/prof_kernels.py:185", "prof_exp2"),

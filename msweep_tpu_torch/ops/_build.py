@@ -122,10 +122,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # G, out (5 ints)
         sig(f"em_step_{suffix}_info", _I64, _P)
         # logL, countsT, lse_prev, logtheta, done, E, G, B, n_cta, lse_out,
-        # part_scalar, part_cols, out_scalar, out_cols, stream
+        # part_scalar, part_cols, scratch, out_scalar, out_cols, stream
         sig(f"em_step_batch_{suffix}", _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
-            _P, _P, _P)
-        # G, out (5 ints)
+            _P, _P, _P, _P)
+        # G, out (6 ints)
         sig(f"em_step_batch_{suffix}_info", _I64, _P)
     # n, bad (one uint64), first (three doubles), stream
     sig("em_exp_check", _I64, _P, _P, _P)

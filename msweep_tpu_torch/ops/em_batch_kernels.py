@@ -14,10 +14,11 @@ what K5 (ops/em_kernels.py em_step) returns for that replicate alone:
 
 The JAX package runs this as the vmapped XLA branch of its EM step
 (msweep_tpu/inference/em.py fit_em_batch), with no kernel of its own; the
-kernel reads logL once for all B replicates where B serial K5 passes read
-it B times.  It runs on K5's row ranges (em_kernels.ranges) with K5's row
-arithmetic, so replicate b gives K5's bits on column b (chip_smoke.py
-phase 3 holds it to that).
+kernel reads logL once for all B replicates (three times, a pass each, for
+rows wider than 512 groups) where B serial K5 passes read it B times.  It
+runs on K5's row ranges (em_kernels.ranges) with K5's row arithmetic, so
+replicate b gives K5's bits on column b (chip_smoke.py phase 3 holds it to
+that).
 
 ``done`` (an optional (B,) bool tensor on logL's device) marks replicates
 that have stopped: the kernel does no row work for them, and every output
@@ -40,9 +41,10 @@ from .rcg_kernels import F64, _on_cpu, _raise_on
 INSTANTIATIONS = em_kernels.INSTANTIATIONS
 
 # Cap on the (n_cta, B, G) float64 column partials: past it the grid
-# shrinks below K5's (only at B * G beyond ~170k at full size), and the
-# replicates' sums then leave K5's row ranges: the same values within
-# float64 round-off, no longer K5's bits.
+# shrinks below K5's (at B * G beyond PART_BYTES / (8 x K5's ranges): ~170k
+# at 792 ranges, ~508k at the 264 of G > 512 on an H100, so G beyond
+# ~63,500 at B = 8), and the replicates' sums then leave K5's row ranges:
+# the same values within float64 round-off, no longer K5's bits.
 PART_BYTES = 1 << 30
 
 
@@ -93,19 +95,17 @@ def _check_inputs(logL, countsT, lse_prev, logtheta, done):
             lse_prev.to(logL.dtype).contiguous(), logtheta.to(logL.dtype).contiguous(), done)
 
 
-def kernel_info(suffix: str, G: int, device_index: int) -> dict:
-    """K6's build at G columns on a card: registers and local (spilled)
-    bytes a thread, rows of its tile (staged rows of logL for G <= 512,
-    rows of weights beyond), CTAs resident an SM, from the runtime, and
-    the rows a warp takes at once."""
-    return dict(zip(("registers", "spill_bytes", "tile_rows", "ctas_per_sm", "rows_at_once"),
-                    em_kernels.read_info(f"em_step_batch_{suffix}_info", G, device_index, 5)))
+# K6's build at G columns on a card (registers, spills, tile rows, CTAs an
+# SM, rows a warp takes at once, chunk columns), from the runtime.
+kernel_info = em_kernels.batch_info
 
 
 def em_step_batch_kernel(logL, countsT, lse_prev, logtheta, done=None):
     """K6 on the card (msweep_tpu_torch/csrc/em_step_batch.cu), on the row
     ranges K5 takes at G columns (em_kernels.ranges), fewer where the
-    partials would pass PART_BYTES."""
+    partials would pass PART_BYTES.  The wide build (G > 512) takes a
+    scratch of its chunk columns' maxima and exp sums, two (NC, B, E)
+    tensors in logL's dtype, allocated here beside the partials."""
     from ._build import load
 
     suffix, countsT, lse_prev, logtheta, done = _check_inputs(logL, countsT, lse_prev,
@@ -114,9 +114,12 @@ def em_step_batch_kernel(logL, countsT, lse_prev, logtheta, done=None):
     B = countsT.shape[1]
     dev = logL.device
     n_cta = em_kernels.ranges(suffix, E, G, dev, max_ranges=PART_BYTES // (8 * B * G))
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    nc = em_kernels.batch_info(suffix, G, index)["chunk_columns"]
     lse = torch.empty((E, B), dtype=logL.dtype, device=dev)
     part_s = torch.empty((n_cta, B), dtype=F64, device=dev)
     part_c = torch.empty((n_cta, B, G), dtype=F64, device=dev)
+    scratch = torch.empty((2, nc, B, E), dtype=logL.dtype, device=dev) if nc else None
     out_s = torch.empty((B,), dtype=F64, device=dev)
     out_c = torch.empty((B, G), dtype=F64, device=dev)
     with torch.cuda.device(dev):
@@ -124,7 +127,8 @@ def em_step_batch_kernel(logL, countsT, lse_prev, logtheta, done=None):
         rc = getattr(load(), f"em_step_batch_{suffix}")(
             logL.data_ptr(), countsT.data_ptr(), lse_prev.data_ptr(), logtheta.data_ptr(),
             None if done is None else done.data_ptr(), E, G, B, n_cta, lse.data_ptr(),
-            part_s.data_ptr(), part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr(), stream,
+            part_s.data_ptr(), part_c.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            out_s.data_ptr(), out_c.data_ptr(), stream,
         )
     _raise_on(rc, "em_step_batch")
     em_step_batch_kernel.launches += 1

@@ -110,17 +110,38 @@ def kernel_info(suffix: str, G: int, device_index: int) -> dict:
     return info
 
 
+# Ints that K6's *_info entry fills (csrc/em_step_batch.cu info_em_step_batch).
+K6_INFO = ("registers", "spill_bytes", "tile_rows", "ctas_per_sm", "rows_at_once",
+           "chunk_columns")
+
+
+def batch_info(suffix: str, G: int, device_index: int) -> dict:
+    """K6's build at G columns on a card (K6_INFO, from the runtime):
+    registers and local (spilled) bytes a thread, rows of its tile of
+    staged rows, CTAs resident an SM (for the wide build the most
+    registers and spills and the fewest rows and CTAs of its three
+    passes), the rows a warp takes at once, and the wide build's chunk
+    columns (0 for rows of one chunk, which take no scratch).  Raises
+    where a pass cannot run (no CTA an SM), before any range count
+    divides by it."""
+    info = dict(zip(K6_INFO, read_info(f"em_step_batch_{suffix}_info", G, device_index,
+                                       len(K6_INFO))))
+    if info["ctas_per_sm"] < 1:
+        raise RuntimeError(f"em_step_batch_{suffix} cannot run at G={G}: {info}")
+    return info
+
+
 def ranges(suffix: str, E: int, G: int, device: torch.device,
            max_ranges: int | None = None) -> int:
     """The row ranges that K5 and K6 (ops/em_batch_kernels.py) share at
     (E, G) in one type on `device` (rcg_kernels.em_ranges): a whole number
     of waves of K5's build and of K6's, whose CTAs an SM come from the
-    runtime (kernel_info here, K6's *_info entry there)."""
+    runtime (kernel_info, batch_info)."""
     from ._build import tile_rows
 
     index = device.index if device.index is not None else torch.cuda.current_device()
     ctas = (kernel_info(suffix, G, index)["ctas_per_sm"],
-            read_info(f"em_step_batch_{suffix}_info", G, index, 5)[3])  # K6's ctas_per_sm
+            batch_info(suffix, G, index)["ctas_per_sm"])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return em_ranges(E, tile_rows(), sms, ctas, max_ranges)
 

@@ -25,7 +25,9 @@ where the tree has it, with its one-chunk build's census by pipe where the
 tree's exp_cost.py counts it) against B single K5 passes over the
 replicates' columns, in both types, on countsT, lse_prev near each replicate's row
 logsumexps and logtheta with ~20% of each theta at 0 (--tail spreads those
-groups' logtheta, as a long fit leaves them); and with --em --fit
+groups' logtheta, as a long fit leaves them), with each kernel's device
+ms a K6 call from torch.profiler (the wide build's three passes, the
+second stage); and with --em --fit
 it runs chip_smoke.py phase 12: fit_em_batch of the same community in
 float64 for a fixed 128 iterations (bench mode, two chunks of 64), timed
 after a one-iteration warm-up, with the objectives per replicate (to
@@ -185,6 +187,21 @@ def _em_inputs(torch, L, B, seed, tail=0.0):
     return countsT, lse_prev.to(L.dtype), logtheta.to(L.dtype)
 
 
+def _kernel_ms(torch, fn, reps):
+    """Device ms a call of fn spends in each kernel it launches, by name
+    (torch.profiler over `reps` calls after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:72]: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 # K6's one-chunk build in each type, as its mangled name begins.
 REP_KERNEL = {"float32": "em_step_batch_rep_kernelIffE",
               "float64": "em_step_batch_rep_kernelIddE"}
@@ -219,6 +236,8 @@ def _em_passes(torch, args):
                                              and torch.equal(colsum[0], one[1])
                                              and float(ddot[0]) == float(one[2])),
                        colsum_sum=float(colsum.sum()), ddot_sum=float(ddot.sum()))
+            rec["k6_kernels_ms"] = _kernel_ms(
+                torch, lambda: KEB.em_step_batch_kernel(L, cT, lp, lt), args.reps)
             if hasattr(exp_cost, "census"):  # the one-chunk build's SASS, by pipe
                 rec["census"] = exp_cost.census(REP_KERNEL[rec["dtype"]])
         print(json.dumps(rec), flush=True)

@@ -90,12 +90,15 @@ def _jax_problem(logL, counts, alpha, bc):
 
 
 @pytest.mark.parametrize("B", [1, 3, 8])
-@pytest.mark.parametrize("E,G,seed", [(61, 37, 1), (130, 257, 2), (17, 600, 3)])
+@pytest.mark.parametrize("E,G,seed", [(61, 37, 1), (130, 257, 2), (17, 600, 3), (40, 1024, 4),
+                                      (23, 1537, 5)])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_batch_pass_is_k5_per_replicate(dtype, E, G, seed, B):
     """Plain K6's replicate b against plain K5 on column b, at ragged E
-    and G (a row of one 512-column chunk and one of two): the same bits
-    (lse, colsum, ddot), since both run K5's arithmetic block by block."""
+    and G (a row of one 512-column chunk, of two, of two whole ones and
+    of four with a one-column tail, as K6's wide build cuts them): the
+    same bits (lse, colsum, ddot), since both run K5's arithmetic block by
+    block."""
     logL, _, _, _ = _problem(E, G, seed, dtype)
     countsT, lse_prev, logtheta = _batch_step_inputs(logL, B, seed)
     L = _t(logL)
@@ -155,24 +158,29 @@ def test_batch_pass_f32_matches_pallas(E, G, seed, padded):
 
 
 def test_batch_kernel_wrapper_validates_before_launch():
-    L = torch.zeros((8, 4), dtype=torch.float64)
-    cT, lp, lt = torch.ones((8, 2), dtype=torch.float64), torch.zeros((8, 2)), torch.zeros((2, 4))
-    with pytest.raises(TypeError):  # no half-precision EM kernel
-        KB.em_step_batch_kernel(L.half(), cT.half(), lp, lt)
-    with pytest.raises(ValueError):  # countsT in another dtype than logL
-        KB.em_step_batch_kernel(L, cT.float(), lp, lt)
-    with pytest.raises(ValueError):  # lse_prev that is not (E, B)
-        KB.em_step_batch_kernel(L, cT, lp.T, lt)
-    with pytest.raises(ValueError):  # logtheta that is not (B, G)
-        KB.em_step_batch_kernel(L, cT, lp, lt[:1])
-    with pytest.raises(ValueError):  # a done mask of the wrong length
-        KB.em_step_batch_kernel(L, cT, lp, lt, torch.zeros(3, dtype=torch.bool))
-    with pytest.raises(ValueError):  # no replicate
-        KB.em_step_batch_kernel(L, cT[:, :0], lp[:, :0], lt[:0])
-    with pytest.raises(ValueError):  # a matrix that is not contiguous
-        KB.em_step_batch_kernel(torch.zeros((4, 8), dtype=torch.float64).T, cT, lp, lt)
-    with pytest.raises(ValueError):  # neither cpu nor cuda
-        KB.em_step_batch(L.to("meta"), cT, lp, lt)
+    """At G = 4 and at G = 1,024 (the wide build, which takes a scratch of
+    its chunk columns): every bad input raises before the wrapper reads
+    the card, sizes the ranges and the scratch, or allocates."""
+    for G in (4, 1024):
+        L = torch.zeros((8, G), dtype=torch.float64)
+        cT, lp, lt = (torch.ones((8, 2), dtype=torch.float64), torch.zeros((8, 2)),
+                      torch.zeros((2, G)))
+        with pytest.raises(TypeError):  # no half-precision EM kernel
+            KB.em_step_batch_kernel(L.half(), cT.half(), lp, lt)
+        with pytest.raises(ValueError):  # countsT in another dtype than logL
+            KB.em_step_batch_kernel(L, cT.float(), lp, lt)
+        with pytest.raises(ValueError):  # lse_prev that is not (E, B)
+            KB.em_step_batch_kernel(L, cT, lp.T, lt)
+        with pytest.raises(ValueError):  # logtheta that is not (B, G)
+            KB.em_step_batch_kernel(L, cT, lp, lt[:1])
+        with pytest.raises(ValueError):  # a done mask of the wrong length
+            KB.em_step_batch_kernel(L, cT, lp, lt, torch.zeros(3, dtype=torch.bool))
+        with pytest.raises(ValueError):  # no replicate
+            KB.em_step_batch_kernel(L, cT[:, :0], lp[:, :0], lt[:0])
+        with pytest.raises(ValueError):  # a matrix that is not contiguous
+            KB.em_step_batch_kernel(torch.zeros((G, 8), dtype=torch.float64).T, cT, lp, lt)
+        with pytest.raises(ValueError):  # neither cpu nor cuda
+            KB.em_step_batch(L.to("meta"), cT, lp, lt)
 
 
 # --- (c), (d): the lockstep fit ----------------------------------------------
@@ -200,6 +208,28 @@ def test_lockstep_batch_matches_jax_on_padded_problem(ldtype):
     assert len(set(ib.tolist())) > 1  # the replicates stop apart
     np.testing.assert_allclose(tb.numpy(), np.asarray(tb_j), rtol=0, atol=2e-6)
     assert not tb[:, 96:].any()
+
+
+def test_lockstep_wide_batch_matches_jax_on_padded_problem():
+    """test_lockstep_batch_matches_jax_on_padded_problem at rows wider than
+    one 512-column chunk (E = 48, G = 600 padded to 624, the pass of K6's
+    wide build on the card), B = 5, float64 (emgpu's default), tol 1e-7,
+    at its bars: the same iterations per replicate and theta within 2e-6,
+    padded groups at 0.  (In float32 at tol 1e-2 one replicate stops an
+    iteration from JAX's here: the float32 noise of the EM delta.)"""
+    logL, counts, alpha, bc = _problem(E=48, G=600, seed=47, dtype=np.float64)
+    batch = _bootstrap_batch(counts, 5, seed=13)
+    Lp, cp, ap = _pad(logL, counts, alpha)
+    bp = np.zeros((5, Lp.shape[0]))
+    bp[:, :48] = batch
+    tol = 1e-7
+    tb_j, ib_j, _ = jem.fit_em_batch(_jax_problem(Lp, cp, ap, bc), jnp.asarray(bp),
+                                     tol=tol, max_iters=4000)
+    tb, ib, ob = E_.fit_em_batch(problem_from_numpy(Lp, cp, ap, bc, "cpu"), bp, tol=tol,
+                                 max_iters=4000)
+    assert ib.tolist() == np.asarray(ib_j).tolist() and max(ib.tolist()) < 4000
+    np.testing.assert_allclose(tb.numpy(), np.asarray(tb_j), rtol=0, atol=2e-6)
+    assert not tb[:, 600:].any()
 
 
 def test_lockstep_batch_matches_serial_fits():
@@ -403,3 +433,34 @@ def test_cuda_one_chunk_batch_exp_range(cuda_device, dtype, E, G):
                                            lt[b].contiguous())
         assert torch.equal(lse[:, b], lse1) and torch.equal(colsum[b], col1), b
         assert float(ddot[b]) == float(dd1), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8, 13])
+@pytest.mark.parametrize("E,G", [(4099, 513), (4097, 1024), (1000, 1537), (777, 4096),
+                                 (9, 30_000), (0, 1024)])
+@pytest.mark.parametrize("dtype", list(KB.INSTANTIATIONS))
+def test_cuda_wide_batch_is_k5_per_replicate(cuda_device, dtype, E, G, B):
+    """K6's wide build (G > 512: the one-chunk layout run chunk column by
+    chunk column, three passes) on the row ranges it shares with K5:
+    replicate b gives K5's bits on column b (its general build) at a
+    one-column tail chunk (513), two and three chunk columns, eight, 59
+    (a row wider than shared memory holds) and E = 0, at B in 1, 3, 8 and
+    13 (a second replicate block); a rerun gives the same bits; a done
+    mask zeroes its replicates and leaves the others' bits."""
+    logL, _, _, _ = _problem(E, G, 53, np.float64)
+    args = [_t(x, dtype).to(cuda_device) for x in (logL, *_batch_step_inputs(logL, B, 53))]
+    L, cT, lp, lt = args
+    got = KB.em_step_batch_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, KB.em_step_batch_kernel(*args)))
+    lse, colsum, ddot = got
+    for b in range(B):
+        lse1, col1, dd1 = K.em_step_kernel(L, cT[:, b].contiguous(), lp[:, b].contiguous(),
+                                           lt[b].contiguous())
+        assert torch.equal(lse[:, b], lse1) and torch.equal(colsum[b], col1), b
+        assert float(ddot[b]) == float(dd1), b
+    done = torch.arange(B, device=cuda_device) % 3 == 1
+    lse_m, colsum_m, ddot_m = KB.em_step_batch_kernel(*args, done=done)
+    assert torch.equal(lse_m[:, ~done], lse[:, ~done]) and not lse_m[:, done].any()
+    assert torch.equal(colsum_m[~done], colsum[~done]) and not colsum_m[done].any()
+    assert torch.equal(ddot_m[~done], ddot[~done]) and not ddot_m[done].any()

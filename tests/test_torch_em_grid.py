@@ -57,17 +57,34 @@ def test_part_bytes_caps_the_range_count(E):
         assert len(range_bounds(E, TILE, n)) == n
 
 
+class _Launches(list):
+    """(entry, n_cta) of each launch on the fake card; `args` holds each
+    launch's arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.args = []
+
+
 def _fake_card(monkeypatch, k6_ctas=2):
     """The CUDA calls of the K5 and K6 wrappers faked on the CPU: an H100's
-    132 SMs, the *_info entries of K5's one-chunk build (3 CTAs an SM,
-    its fifth int) and of K6's (`k6_ctas`, its fourth), and a library
-    whose em_step and em_step_batch entries record the range count each
-    launch takes.  Returns that record: [(entry, n_cta)]."""
+    132 SMs, the *_info entries of K5's builds (3 CTAs an SM for rows of
+    one chunk, 2 for its general build: the fifth int) and of K6's
+    (`k6_ctas`, the fourth of six; the sixth its chunk columns, 0 for rows
+    of one chunk), and a library whose em_step and em_step_batch entries
+    record the range count each launch takes (argument 7 of em_step's,
+    8 of em_step_batch's, which takes its scratch as argument 12).
+    Returns that record: [(entry, n_cta)], with the arguments in .args."""
     from msweep_tpu_torch.ops import _build
 
-    info = {"em_step_f64_f64_info": (80, 0, 32, 512, 3),
-            "em_step_batch_f64_f64_info": (128, 0, 6, k6_ctas, 2)}
-    monkeypatch.setattr(K, "read_info", lambda entry, G, index, n: info[entry])
+    def read_info(entry, G, index, n):
+        wide = G > 512
+        if entry == "em_step_f64_f64_info":
+            return (128, 0, 8, 1536, 2) if wide else (80, 0, 32, 512, 3)
+        assert entry == "em_step_batch_f64_f64_info" and n == 6
+        return (128, 0, 10 if wide else 6, k6_ctas, 2, -(-G // 512) if wide else 0)
+
+    monkeypatch.setattr(K, "read_info", read_info)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: type("P", (), {"multi_processor_count": 132}))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
@@ -75,11 +92,12 @@ def _fake_card(monkeypatch, k6_ctas=2):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: type("S", (), {"cuda_stream": 0}))
     monkeypatch.setattr(_build, "tile_rows", lambda: TILE)
-    launched = []
+    launched = _Launches()
 
     def entry(name, n_cta_at):
         def launch(*args):
             launched.append((name, args[n_cta_at]))
+            launched.args.append(args)
             return 0
         return launch
 
@@ -113,14 +131,47 @@ def test_k5_and_k6_take_the_same_ranges(monkeypatch):
                     max_ranges=KB.PART_BYTES // (8 * 8 * 512)) == 792
 
 
-@pytest.mark.parametrize("k6_ctas,n", [(2, 792), (3, 396), (1, 396), (4, 1584)])
-def test_k5_ranges_follow_k6_build(monkeypatch, k6_ctas, n):
-    """K5's numerics follow K6's build: K5's range count is lcm(3, K6's
-    CTAs an SM) x 132, so a change to K6's CTAs an SM (em_step_batch.cu
-    RepBuild::ctas) moves K5's ranges, and its bits by round-off."""
+@pytest.mark.parametrize("k6_ctas,n,G", [
+    pytest.param(2, 792, 4, id="2-792"), pytest.param(3, 396, 4, id="3-396"),
+    pytest.param(1, 396, 4, id="1-396"), pytest.param(4, 1584, 4, id="4-1584"),
+    pytest.param(2, 264, 1024, id="G1024-2-264"), pytest.param(1, 264, 1024, id="G1024-1-264"),
+    pytest.param(3, 792, 1537, id="G1537-3-792"), pytest.param(4, 528, 4096, id="G4096-4-528")])
+def test_k5_ranges_follow_k6_build(monkeypatch, k6_ctas, n, G):
+    """K5's numerics follow K6's build: K5's range count is lcm(K5's CTAs
+    an SM, K6's) x 132, 3 for K5's one-chunk build and 2 for its general
+    one (G > 512), so a change to the CTAs an SM of the K6 build that
+    runs at G (em_step_batch.cu RepBuild::ctas, or WideBuild::ctas beyond
+    512 columns) moves K5's ranges there, and its bits by round-off; the
+    wide build's two (float32) or one (float64) keep K5's 264."""
     launched = _fake_card(monkeypatch, k6_ctas)
-    _launch_both(792 * 4 * TILE)
+    _launch_both(792 * 4 * TILE, G)
     assert launched == [("em_step", n), ("em_step_batch", n)]
+
+
+@pytest.mark.parametrize("G", [512, 1024])
+def test_k6_build_without_a_cta_raises(monkeypatch, G):
+    """A K6 build at G that reports no CTA an SM (the wide build: its
+    fewest over its three passes) raises, naming the build, G and its
+    info, before the ranges divide by it: in K5's launch (serial EM takes
+    the shared ranges too) and in K6's."""
+    launched = _fake_card(monkeypatch, k6_ctas=0)
+    with pytest.raises(RuntimeError, match=f"em_step_batch_f64_f64 cannot run at G={G}"):
+        K.ranges("f64_f64", 1000, G, torch.device("cuda", 0))
+    with pytest.raises(RuntimeError, match="ctas_per_sm"):
+        _launch_both(1000, G)
+    assert launched == []
+
+
+@pytest.mark.parametrize("G,nc", [(512, 0), (513, 2), (1024, 2), (4096, 8)])
+def test_wide_k6_takes_its_scratch(monkeypatch, G, nc):
+    """K6's wrapper hands the wide build (G > 512) a scratch, the chunk
+    columns' maxima and exp sums (its info's sixth int, NC = ceil(G /
+    512), of them), and the one-chunk build none (a null pointer)."""
+    launched = _fake_card(monkeypatch)
+    assert KB.kernel_info("f64_f64", G, 0)["chunk_columns"] == nc
+    _launch_both(100, G)
+    scratch = launched.args[1][12]
+    assert (scratch is None) == (nc == 0)
 
 
 SASS = """

@@ -24,11 +24,13 @@ Phases (each raises on failure, and the script exits non-zero):
    not a multiple of the tile, E below a wave's ranges, E = 0, G in 3, 511
    and 512 and logL times 40 (exp's slow range), every K6 replicate K5's
    bits, and their float64 exp against CUDA's exp on 3 x 2^30 arguments,
-   bit for bit; K6's wide build (G > 512) at 4,097 x 1,024 and 1,000 x
-   1,537, B in 1, 3, 8, 13, every replicate K5's bits, and at 1,150,976 x
-   1,024 and 287,744 x 4,096, B = 8, in both types: K5's bits, then its
-   time beside 8 K5 passes over the same columns, its bound and its
-   build; then kernel and plain times at
+   bit for bit; K6's wide build (G > 512) at 4,097 x 1,024, 1,000 x
+   1,537 and 1,000 x 2,501, B in 1, 3, 8, 13, every replicate K5's bits;
+   at 1,150,976 x 1,024 and 287,744 x 4,096, in both types, K5's wide
+   builds against their plain version, the build as ops/em_kernels.py
+   em_build predicts it, and their time, bound and share of it, then K6
+   at B = 8: K5's bits, its time beside 8 K5 passes over the same
+   columns, its bound and its build; then kernel and plain times at
    2,301,952 x 512 (K3/K4/K6 at B = 8; K6 also beside 8 K5 passes over
    the same columns), each beside its bound (the larger of the bytes it
    must move at 3.35 TB/s and its operations at the data sheet's peak;
@@ -97,7 +99,10 @@ Phases (each raises on failure, and the script exits non-zero):
    float64, 32 iterations at 1,150,976 x 1,024 groups on logL and counts
    drawn on the card as phase 3 draws them, every pass K6's wide build,
    replicates 0 and 7 against their serial K5 fits to the bit, ms an
-   iteration and peak device memory.
+   iteration and peak device memory; then serial EM on the same problem
+   (fit_em_result, float64, 128 iterations, every pass K5's wide build),
+   ms an iteration beside K5's ms a pass, both projected to the
+   5000-iteration cap, and the objective beside the parent's.
 
 Each path of 5-12 sets its kernels' launch counters to 0 just before it
 runs and reads them just after.
@@ -143,22 +148,28 @@ EM_SHAPES = [(4_097, 511, 1), (500, 3, 1), (0, 512, 1), (4_099, 512, 40)]
 EM_BATCH_SIZES = (3, 13)
 # K6's wide build (G > 512: chunk column by chunk column, three passes) at
 # B in BATCH_SIZES beyond KERNEL_SHAPES' 4,099 x 4,096, 777 x 5,000 and
-# 9 x 30,000: two whole chunk columns, and three with a one-column tail.
-WIDE_EM_SHAPES = [(4_097, 1_024), (1_000, 1_537)]
+# 9 x 30,000: two whole chunk columns, three with a one-column tail, and
+# five with a ragged tail (K5's pair, direct and owned builds, the last
+# with one-cell loads).
+WIDE_EM_SHAPES = [(4_097, 1_024), (1_000, 1_537), (1_000, 2_501)]
 # K6's wide build timed at B = 8 beside 8 K5 passes over the same columns:
 # efaec-1's 1,178,599,424 cells at 1,024 and 4,096 groups.  Phase 12 fits
 # the first for WIDE_FIT_ITERS iterations.
 WIDE_TIMED = [(1_150_976, 1_024), (287_744, 4_096)]
 WIDE_FIT_ITERS = 32
+SERIAL_WIDE_ITERS = 128  # phase 12's serial EM at 1,024 groups
 SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 # What the parent tree's fits gave on the card (iterations, objective):
-# phase 5's and phase 11's rcg fit and 64 float64 EM iterations from
-# chip_smoke.py at commit cd88794, phase 6's EM fit at its cap from
-# msweep_tpu_torch/time_fits.py --tree at that commit.  The loops moved
-# onto the device keep each scalar operation and its order, so a run gives
-# these to the bit.
-PARENT = {"rcg": (499, -18682388.05370243), "em": (5000, -18677316.45642239),
-          "em64": (64, -18704662.12176752)}
+# phase 5's and phase 11's rcg fit from chip_smoke.py at commit cd88794;
+# phase 6's EM fit at its cap, phase 11's 64 float64 EM iterations and
+# phase 12's serial EM at 1,024 groups from msweep_tpu_torch/time_fits.py
+# --algo em,em64,em_wide --tree at commit 6ddcd33 (the shared row ranges
+# of commit c986e96 moved the first two by an ulp from their cd88794
+# values).  The loops moved onto the device keep each scalar operation
+# and its order, and K5's wide builds its values and row ranges, so a run
+# gives these to the bit.
+PARENT = {"rcg": (499, -18682388.05370243), "em": (5000, -18677316.4564224),
+          "em64": (64, -18704662.12176759), "em_wide": (SERIAL_WIDE_ITERS, -159560435.6141998)}
 DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a live pass
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
@@ -698,18 +709,40 @@ def _k6_issue(torch, KEB, E, G, B, lsize, csize, census, suffix):
 
 
 def _time_wide(torch, KE, KEB, exp_instr):
-    """K6's wide build at WIDE_TIMED, B = 8, in both types: every replicate
-    K5's bits at full size (_check_em_batch), then its ms a pass (CUDA
-    events) beside 8 K5 passes over the same columns, its bound and share
-    of it, and its build (registers, spills, tile, CTAs an SM: the
-    extremes of its three passes; chunk columns) and row ranges.  Returns
-    the kernels record's entry for float64 at G = 1,024, the shape phase
-    12 fits: {"em_step_batch_wide": {...}}."""
+    """K5's and K6's wide builds at WIDE_TIMED, in both types.  K5 against
+    its plain version (_check_em), its build as ops/em_kernels.py em_build
+    predicts it at this card's shared memory, its ms a pass (CUDA events),
+    bound and share of it.  K6 at B = 8: every replicate K5's bits at full
+    size (_check_em_batch), then its ms a pass beside 8 K5 passes over the
+    same columns, its bound and share of it, and its build (registers,
+    spills, tile, CTAs an SM: the extremes of its three passes; chunk
+    columns) and row ranges.  Returns the kernels record's entries for
+    float64 at G = 1,024, the shape phase 12 fits: {"em_step_wide": {...},
+    "em_step_batch_wide": {...}}."""
     record = {}
     dev = torch.cuda.current_device()
+    props = torch.cuda.get_device_properties(dev)
     for E, G in WIDE_TIMED:
         for ld, suffix in KE.INSTANTIATIONS.items():
-            L = _inputs(torch, E, G, ld, seed=9)[0]
+            L, counts = _inputs(torch, E, G, ld, seed=9)[:2]
+            em_in = _em_inputs(torch, L, counts, 9)
+            err5 = _check_em(torch, KE, L, em_in, f"E={E} G={G} {suffix}")
+            k5_ms = _time_ms(torch, lambda: KE.em_step_kernel(L, *em_in), 10)
+            bms5, by5 = bound_ms("em_step", E, G, L.element_size(), L.element_size(), exp_instr)
+            info5 = KE.kernel_info(suffix, G, dev)
+            want = KE.em_build(G, L.element_size())
+            _say(f"  em_step {suffix} at E={E} G={G}: {k5_ms:.4f} ms, bound {bms5:.4f} ms "
+                 f"({by5}), share of bound {bms5 / k5_ms:.3f}; {info5['build']} build, "
+                 f"{info5['registers']} registers, {info5['spill_bytes']} local (spilled) bytes a "
+                 f"thread, tile of {info5['tile_rows']} rows, {info5['ctas_per_sm']} CTAs an SM "
+                 f"(em_build at an H100's shared memory: {want}); max abs err {err5:.3e}")
+            if "H100" in props.name and (info5["build"], info5["tile_rows"]) != want:
+                raise AssertionError(f"K5 runs {info5} at G={G}, em_build says {want}")
+            if (E, G, ld) == (*WIDE_TIMED[0], torch.float64):
+                plain_ms = _time_ms(torch, lambda: KE.em_step_plain(L, *em_in), 1)
+                record["em_step_wide"] = dict(ms=k5_ms, plain_ms=plain_ms, max_abs_err=err5,
+                                              bound_ms=bms5, bound_by=by5, library_ms=None)
+            del em_in, counts
             em_b = _em_batch_inputs(torch, L, 8, 9)
             err = _check_em_batch(torch, KE, KEB, L, em_b, f"E={E} G={G} {suffix} B=8")
             cols8 = [(em_b[0][:, b].contiguous(), em_b[1][:, b].contiguous(), em_b[2][b])
@@ -1861,33 +1894,45 @@ def phase_em_bootstrap(torch, lik):
         raise AssertionError("float32 EM bootstrap thetas are not distributions")
     del p32
     torch.cuda.empty_cache()
-    launches["em_step_batch_wide"] = _em_bootstrap_wide(torch, counters)
+    launches["em_step_batch_wide"], launches["em_step_wide"] = _em_bootstrap_wide(torch,
+                                                                                counters)
     _say(f"  phase 12 {time.perf_counter() - t0:.1f} s")
-    return {"em_step_batch_kernel": launches["em_step_batch_kernel"],
-            "em_step_batch_f32": launches["em_step_batch_f32"],
-            "em_step_batch_wide": launches["em_step_batch_wide"]}
+    return {name: launches[name] for name in ("em_step_batch_kernel", "em_step_batch_f32",
+                                              "em_step_batch_wide", "em_step_wide")}
 
 
-def _em_bootstrap_wide(torch, counters):
-    """Phase 12's G = 1,024 leg: fit_em_batch, B = 8, float64, for
-    WIDE_FIT_ITERS iterations in bench mode (one chunk) at WIDE_TIMED[0],
-    on logL and counts drawn on the card as phase 3 draws them (_inputs),
-    alpha 1: every iteration one K6 pass of its wide build and no K5;
-    replicates 0 and 7 against their serial K5 fits (fit_em_result(counts=))
-    to the bit.  Returns K6's launches."""
-    from msweep_tpu_torch.core.sample import BootstrapResampler
-    from msweep_tpu_torch.inference import fit_em_batch, fit_em_result
+def _wide_problem(torch):
+    """Phase 12's G = 1,024 problem: logL and counts at WIDE_TIMED[0] in
+    float64, drawn on the card as phase 3 draws them (_inputs, seed 9),
+    alpha 1, on the card: (the problem, its counts on the host).  Also
+    msweep_tpu_torch/time_fits.py --algo em_wide's, for a parent tree."""
     from msweep_tpu_torch.inference.mixture import bound_const
     from msweep_tpu_torch.inference.pack import DeviceProblem
     from msweep_tpu_torch.utils import PAD_THRESHOLD
 
-    (E, G), B, iters = WIDE_TIMED[0], 8, WIDE_FIT_ITERS
+    E, G = WIDE_TIMED[0]
     L, counts = _inputs(torch, E, G, torch.float64, seed=9)[:2]
     host_counts = counts.cpu().numpy()
     p = DeviceProblem(shards=[(L, counts)], rows=[(0, E)],
                       alpha=torch.ones(G, dtype=torch.float64, device=L.device),
                       valid=L[0] > PAD_THRESHOLD, n_ecs=E, n_groups=G,
                       bound_const=bound_const(host_counts, np.ones(G)))
+    return p, host_counts
+
+
+def _em_bootstrap_wide(torch, counters):
+    """Phase 12's G = 1,024 legs on _wide_problem.  The EM bootstrap:
+    fit_em_batch, B = 8, float64, for WIDE_FIT_ITERS iterations in bench
+    mode (one chunk): every iteration one K6 pass of its wide build and no
+    K5; replicates 0 and 7 against their serial K5 fits
+    (fit_em_result(counts=)) to the bit.  Then serial EM (_em_serial_wide).
+    Returns K6's launches and K5's."""
+    from msweep_tpu_torch.core.sample import BootstrapResampler
+    from msweep_tpu_torch.inference import fit_em_batch, fit_em_result
+
+    (E, G), B, iters = WIDE_TIMED[0], 8, WIDE_FIT_ITERS
+    p, host_counts = _wide_problem(torch)
+    L, counts = p.shards[0]
     batch = BootstrapResampler(host_counts, seed=7).resample_batch(B)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1923,9 +1968,52 @@ def _em_bootstrap_wide(torch, counters):
         if not same:
             raise AssertionError(f"replicate {b} of the G={G} EM bootstrap differs from its "
                                  "serial fit")
-    del p, L, counts, r
+    del r
+    k5 = _em_serial_wide(torch, p, counters)
+    del p, L, counts
     torch.cuda.empty_cache()
-    return k6
+    return k6, k5
+
+
+def _em_serial_wide(torch, p, counters):
+    """Phase 12's serial-EM leg on the G = 1,024 problem p: fit_em_result
+    in float64 (the emgpu default) for SERIAL_WIDE_ITERS iterations in
+    bench mode (chunks of 64), every pass K5's wide build and no other EM
+    pass; ms an iteration beside K5's ms a pass (CUDA events) and both
+    projected to the 5000-iteration cap; the objective beside the
+    parent's (PARENT "em_wide").  Returns K5's launches."""
+    from msweep_tpu_torch.inference import fit_em_result
+    from msweep_tpu_torch.ops import em_kernels as KE
+
+    iters, E, G = SERIAL_WIDE_ITERS, p.n_ecs, p.n_groups
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = fit_em_result(p, tol=-1.0, max_iters=iters, chunk=64)
+    objective = float(r.objective)
+    fit_s = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in counters}
+    k5 = launches["em_step_kernel"]
+    # One K5 pass for the init, one a step, one for the pseudocounts.
+    if k5 != iters + 2 or any(n for name, n in launches.items() if name != "em_step_kernel"):
+        raise AssertionError(f"serial EM at G={G} did not run on K5 alone: {launches}")
+    theta = r.theta
+    if not torch.isfinite(theta).all() or abs(float(theta.sum()) - 1) > 1e-9:
+        raise AssertionError(f"serial EM at G={G}: theta is not a distribution")
+    L, counts = p.shards[0]
+    em_in = _em_inputs(torch, L, counts, 7)
+    k5_ms = _time_ms(torch, lambda: KE.em_step_kernel(L, *em_in), 10)
+    info = KE.kernel_info(KE.INSTANTIATIONS[L.dtype], G, torch.cuda.current_device())
+    it_ms = fit_s * 1e3 / iters
+    _say(f"  G={G} serial EM: E={E}, float64, {iters} iterations (fit_em_result, K5's "
+         f"{info['build']} build): {fit_s:.3f} s, {it_ms:.4f} ms an iteration against K5 "
+         f"{k5_ms:.4f} ms a pass ({it_ms - k5_ms:.4f} ms of host and small ops); projection to "
+         f"the 5000-iteration cap, not measured: {it_ms * 5:.1f} s (K5 alone "
+         f"{k5_ms * 5:.1f} s); launches {launches}")
+    _beside_parent("em_wide", r.n_iters, objective, f"serial EM at G={G}")
+    del r, theta, em_in
+    return k5
 
 
 def main() -> int:
@@ -1984,6 +2072,8 @@ def main() -> int:
         # K6's wide build (G > 512), float64, timed and fitted at 1,150,976 x 1,024.
         ("em_step_batch_wide", "em_step_batch.cu", "msweep_tpu/inference/em.py:130",
          "em_step_batch_wide"),
+        # K5's wide build (G > 512), float64, timed and fitted (serial EM) there too.
+        ("em_step_wide", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_wide"),
         ("prof_read", "prof_sweeps.cu", "tools/prof_kernels.py:118", "prof_read"),
         ("prof_exp", "prof_sweeps.cu", "tools/prof_kernels.py:178", "prof_exp"),
         ("prof_exp2", "prof_sweeps.cu", "tools/prof_kernels.py:185", "prof_exp2"),

@@ -43,16 +43,38 @@
 // than held in registers.  The exps are K6's, rcg_common.cuh row_exps: in
 // float64 CUDA's exp with its branches taken as selects, so a row's 16
 // exps interleave whatever their arguments.
-// Wider rows run the general instantiation at two CTAs an SM, on tiles of
-// at least 8 rows, one a warp, whatever G: phase A merges a row's chunks
-// into its max and exp sum; then, a slab of columns at a time (as many
-// chunks as 8 rows of weights fit in the CTA's shared memory: 1,536
-// columns in float64, 3,584 in float32 on an H100), each warp reads its
-// row's chunks in the slab again and takes w with a second exp
-// (em_chunk_w) into the slab's tile, and phase B adds the slab's columns
-// in row order.  So a wide row costs two reads and two exps per cell, and
-// no warp idles for want of shared memory.  The weights, and the order of
-// the adds into each column, do not depend on the tile or the slab.
+// Wider rows (G > 512) keep K5's values: chunk c's exps at the running
+// max M_c = cmax(M_{c-1}, max of chunk c), den = den * exp(M_{c-1} - M_c)
+// + the chunk's sum in chunk order (rcg_common.cuh em_chunk_stats), w =
+// exp(t - m) * crow with crow = cnt / den, lse = m + log(den).  Every one
+// is a function of the chunks' maxima, their sums and the cells, so the
+// pair and owned builds take every chunk's max first and keep the bits:
+// where M_c is already the row's max m, the sum's exps are the weights'
+// exps, and a chunk takes its second exp only where a later chunk raises
+// the max.  Three builds, at two CTAs an SM each (so K5 and K6's wide
+// build share 2 x SMs row ranges at G > 512, ops/em_kernels.py ranges),
+// chosen by G (em_plan; mirrored by ops/em_kernels.py em_build), each
+// timed against the others with msweep_tpu_torch/time_em_step.py (PERF.md
+// section 6):
+// - pair (em_step_pair_kernel, G <= 2 CHUNK): the one-chunk build's layout
+//   with the row's two chunks in registers, 32 cells a lane, a warp a row:
+//   one read a cell, the weights through a tile in shared memory.
+// - owned (em_step_owned_kernel, OWNED_MIN_CHUNKS to WARPS chunks): the
+//   CTA takes one row at a time, warp c its chunk c in registers, each
+//   lane its own cells of the next rows copied ahead into its warp's ring
+//   (cp.async), so each cell is read once from device memory, and the
+//   lane keeps its 16 columns' partials in registers across the range
+//   (rows in order, written once).  Two barriers a row: after the chunks'
+//   maxima, and after their exp sums; every warp then replays the merge.
+// - direct (em_step_kernel<..., false>, the other widths): a warp a row;
+//   phase A merges a row's chunks into its max and exp sum; then, a slab
+//   of columns at a time (as many chunks as 8 rows of weights fit in the
+//   CTA's shared memory), each warp reads its row's chunks in the slab
+//   again and takes w with a second exp (em_chunk_w) into the slab's
+//   tile, and phase B adds the slab's columns in row order into the CTA's
+//   partials in device memory.  Two reads and two exps a cell.
+// The weights, and the order of the adds into each column, depend on
+// neither the build nor its tile.
 // No atomics: the second stage sums the partials in CTA order, so a rerun
 // gives the same bits.  Padding: NEG cells (and NEG + NEG = -2e8 where
 // theta = 0, finite in float32) get weight exactly 0; count-0 rows add 0.
@@ -60,20 +82,28 @@
 // writes zeros (its rows of lse, its partials) and returns without reading
 // logL, so a converged state inside a chunk of inference/em.py costs
 // launches, not passes.
-// Left for later work: prefetching the warp's next row.
 #include "rcg_common.cuh"
 
 namespace rcg {
 
 // CTAs an SM: three for rows of one chunk (at most 85 registers a thread,
 // so that one CTA's FP64 exps overlap the others' phase B and loads), two
-// for wider rows, whose second pass needs more registers.
+// for wider rows in every build, whose passes need more registers.
 template <bool ONE_CHUNK>
 constexpr int EM_CTAS = ONE_CHUNK ? 3 : 2;
+constexpr int EM_WIDE_CTAS = EM_CTAS<false>;
+
+// The builds (em_plan), numbered as em_step_*_info reports them.
+enum EmBuild { EM_ONE_CHUNK = 0, EM_PAIR = 1, EM_OWNED = 2, EM_DIRECT = 3 };
+// The owned build runs rows of OWNED_MIN_CHUNKS to WARPS chunks: with
+// fewer, most of its warps idle and the direct build was faster
+// (PERF.md section 6).  OWNED_STAGES: the most rows in flight.
+constexpr int OWNED_MIN_CHUNKS = 5;
+constexpr int OWNED_STAGES = 4;
 
 // ONE_CHUNK: G <= CHUNK, so the row functions are compiled for one chunk.
 // A tile is `tile` rows of `slab` columns of weights in shared memory: the
-// whole row for one chunk, a slab of whole chunks for the general build.
+// whole row for one chunk, a slab of whole chunks for the direct build.
 template <typename LT, typename CT, bool ONE_CHUNK>
 __global__ void __launch_bounds__(THREADS, EM_CTAS<ONE_CHUNK>)
 em_step_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
@@ -176,37 +206,435 @@ em_step_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
   if (threadIdx.x == 0) part_scalar[blockIdx.x] = acc;
 }
 
-// The instantiation for G columns, its tile of weights (from its
-// shared-memory budget, read from the runtime once per device) and the
-// dynamic shared memory that takes.  The general build's slab is the row's
+// The owned build's dynamic shared memory at G columns and `stages` rows
+// in flight: logtheta (NC chunks, in the chunks' layout), three pairs of
+// (WARPS,) chunk scalars (the chunk maxima, the exp sums at M_c and
+// exp(M_{c-1} - M_c), by the parity of the row), then each warp's ring of
+// `stages` copies of its chunk (ops/em_kernels.py owned_bytes mirrors it).
+__host__ __device__ inline int64_t align16(int64_t bytes) { return (bytes + 15) / 16 * 16; }
+__host__ __device__ inline int64_t owned_bytes(int64_t G, int64_t size, int stages) {
+  const int64_t chunk_bytes = (G + CHUNK - 1) / CHUNK * CHUNK * size;
+  return chunk_bytes + align16(6 * WARPS * size) + (int64_t)stages * chunk_bytes;
+}
+// Rows in flight of the owned build: as many as fit, at most OWNED_STAGES;
+// 0 where G has fewer chunks than OWNED_MIN_CHUNKS or more than WARPS, or
+// two rows do not fit.
+inline int owned_stages(int64_t G, int64_t size, int64_t budget) {
+  const int64_t nc = (G + CHUNK - 1) / CHUNK;
+  if (nc < OWNED_MIN_CHUNKS || nc > WARPS) return 0;
+  int s = OWNED_STAGES;
+  while (s >= 2 && owned_bytes(G, size, s) > budget) --s;
+  return s >= 2 ? s : 0;
+}
+
+// The lane's cells of a chunk in shared memory whose first n cells hold
+// values (in load_row_chunk's slots, `fill` beyond n): 16-byte loads where
+// n % 4 == 0, one cell a load otherwise.  A float64 lane reads its four
+// cells of a 128-cell group as two 16-byte halves, lanes 4-7 of each eight
+// the second half first, so that each load of eight lanes covers 128
+// bytes once (no bank conflict).
+template <typename T>
+__device__ __forceinline__ void load_chunk_shared(const T* chunk, int64_t n, int lane, T fill,
+                                                  T (&x)[NPL]) {
+#pragma unroll
+  for (int j = 0; j < NPL / 4; ++j) {
+    const int64_t g = 128 * j + 4 * lane;
+    if (n % 4 == 0) {
+      if (g < n) {
+        if constexpr (sizeof(T) == 4) {
+          const float4 q = *reinterpret_cast<const float4*>(chunk + g);
+          x[4 * j] = q.x; x[4 * j + 1] = q.y; x[4 * j + 2] = q.z; x[4 * j + 3] = q.w;
+        } else {
+          const int h = (lane >> 2) & 1;
+          const double2 a = reinterpret_cast<const double2*>(chunk + g)[h];
+          const double2 b = reinterpret_cast<const double2*>(chunk + g)[h ^ 1];
+          x[4 * j] = h ? b.x : a.x; x[4 * j + 1] = h ? b.y : a.y;
+          x[4 * j + 2] = h ? a.x : b.x; x[4 * j + 3] = h ? a.y : b.y;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) x[4 * j + k] = fill;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[4 * j + k] = (g + k < n) ? chunk[g + k] : fill;
+    }
+  }
+}
+
+// All CHUNK of the lane's cells of a chunk in shared memory, in
+// load_chunk_shared's order of float64 halves.
+template <typename T>
+__device__ __forceinline__ void store_chunk_shared(T* chunk, int lane, const T (&x)[NPL]) {
+#pragma unroll
+  for (int j = 0; j < NPL / 4; ++j) {
+    T* p = chunk + 128 * j + 4 * lane;
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2],
+                                                  x[4 * j + 3]);
+    } else {
+      const int h = (lane >> 2) & 1;
+      const double2 lo = make_double2(x[4 * j], x[4 * j + 1]);
+      const double2 hi = make_double2(x[4 * j + 2], x[4 * j + 3]);
+      reinterpret_cast<double2*>(p)[h] = h ? hi : lo;
+      reinterpret_cast<double2*>(p)[h ^ 1] = h ? lo : hi;
+    }
+  }
+}
+
+// Start copying the lane's cells of the chunk at c0 of a row (its slots,
+// as load_row_chunk reads them) to the same offsets of dst in shared
+// memory: 16 bytes a copy where vec, one cell a copy otherwise; cells at
+// or beyond G are not copied.  Only the lane reads them back.
+template <typename LT>
+__device__ __forceinline__ void stage_lane_chunk(LT* dst, const LT* __restrict__ row, int64_t c0,
+                                                 int64_t G, bool vec, int lane) {
+#pragma unroll
+  for (int j = 0; j < NPL / 4; ++j) {
+    const int64_t o = 128 * j + 4 * lane, g = c0 + o;
+    if (vec && g < G) {
+#pragma unroll
+      for (int k = 0; k < 4; k += 16 / (int)sizeof(LT)) cp_async<16>(dst + o + k, row + g + k);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (g + k < G) cp_async<(int)sizeof(LT)>(dst + o + k, row + g + k);
+    }
+  }
+}
+
+// The owned build (rows of OWNED_MIN_CHUNKS to WARPS chunks): the CTA
+// takes its rows one at a time, warp c the row's chunk c in registers, so
+// lane l keeps its 16 columns' partials in registers across the range,
+// rows in order, and no weight leaves the registers.  Each lane copies its
+// own cells of the next rows into its warp's ring (cp.async), so it waits
+// on its own copies only.  Per row: t and the chunk's max, a barrier, the
+// chunk's exps at M_c and their sum (and exp(t - m) where M_c < m), a
+// barrier, the merge replayed by every warp, then w = exp(t - m) * crow
+// into the partials.
+template <typename LT, typename CT>
+__global__ void __launch_bounds__(THREADS, EM_WIDE_CTAS)
+em_step_owned_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
+                     const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
+                     const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
+                     int64_t tq, int64_t tr, int tile, int64_t slab,
+                     CT* __restrict__ lse_out, double* __restrict__ part_scalar,
+                     double* __restrict__ part_cols) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = (int)((G + CHUNK - 1) / CHUNK);
+  const int64_t chunk_cells = (int64_t)nc * CHUNK;
+  CT* lt_sh = reinterpret_cast<CT*>(smem);
+  CT* sc = reinterpret_cast<CT*>(smem + chunk_cells * sizeof(CT));  // scalars
+  LT* ring = reinterpret_cast<LT*>(smem + chunk_cells * sizeof(CT) +
+                                   align16(6 * WARPS * sizeof(CT)));
+  const int stages = tile;
+  int64_t lo, hi;
+  split_rows(blockIdx.x, E, tq, tr, lo, hi);
+  double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
+  if (done != nullptr && *done) {
+    for (int64_t g = threadIdx.x; g < G; g += THREADS) cols[g] = 0.0;
+    for (int64_t e = lo + threadIdx.x; e < hi; e += THREADS) lse_out[e] = 0;
+    if (threadIdx.x == 0) part_scalar[blockIdx.x] = 0.0;
+    return;
+  }
+  const bool own = warp < nc;  // warp c < NC owns chunk c
+  const int64_t c0 = (int64_t)warp * CHUNK;
+  LT* my_ring = ring + c0;  // stage s at my_ring + s * chunk_cells
+  if (own) {
+    CT lt[NPL];
+    load_cols(logtheta, c0, G, lane, lt);
+    store_chunk_shared(lt_sh + c0, lane, lt);
+    for (int s = 0; s < stages - 1; ++s) {
+      if (lo + s < hi) stage_lane_chunk(my_ring + s * chunk_cells, logL + (lo + s) * G, c0, G,
+                                        vec, lane);
+      cp_async_commit();
+    }
+  }
+  double cacc[NPL];
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) cacc[i] = 0.0;
+  double acc = 0.0;  // thread 0's
+  int par = 0;
+  for (int64_t e = lo; e < hi; ++e, par ^= 1) {
+    CT* cmax_sh = sc + par * WARPS;
+    CT* csum_sh = sc + (2 + par) * WARPS;
+    CT* step_sh = sc + (4 + par) * WARPS;
+    const CT cnt = (CT)counts[e];
+    const CT lp = threadIdx.x == 0 ? lse_prev[e] : (CT)0;
+    CT x[NPL];
+    if (own) {
+      const int64_t nx = e + stages - 1;
+      if (nx < hi)
+        stage_lane_chunk(my_ring + (nx - lo) % stages * chunk_cells, logL + nx * G, c0, G, vec,
+                         lane);
+      cp_async_commit();
+      // This row's copies: stages - 1 groups were committed after them.
+      if (stages == 2) cp_async_wait<1>();
+      else if (stages == 3) cp_async_wait<2>();
+      else cp_async_wait<OWNED_STAGES - 1>();
+      // Step 1: t and the chunk's max.
+      const LT* cells = my_ring + (e - lo) % stages * chunk_cells;
+      CT lt[NPL];
+      load_chunk_shared(cells, G - c0, lane, neg_inf<LT>(), x);
+      load_chunk_shared(lt_sh + c0, CHUNK, lane, (CT)0, lt);
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) x[i] = x[i] + lt[i];
+      CT cm = x[0];
+#pragma unroll
+      for (int i = 1; i < NPL; ++i) cm = cmax(cm, x[i]);
+      cm = warp_max(cm);
+      if (lane == 0) cmax_sh[warp] = cm;
+    }
+    __syncthreads();
+    CT m = neg_inf<CT>();
+    if (own) {
+      // Step 2: the chunk's exps at M_c and their sum; exp(t - m) in x.
+      CT Mc = 0, Mp = 0;
+      for (int j = 0; j < nc; ++j) {
+        if (j == warp) Mp = m;
+        m = cmax(m, cmax_sh[j]);
+        if (j == warp) Mc = m;
+      }
+      CT cs = 0;
+      if (Mc == m) {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x[i] = x[i] - Mc;
+        row_exps(x);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) cs += x[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) cs += em_exp(x[i] - Mc);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x[i] = x[i] - m;
+        row_exps(x);
+      }
+      cs = warp_sum(cs);
+      if (lane == 0) {
+        csum_sh[warp] = cs;
+        step_sh[warp] = warp > 0 ? cexp(Mp - Mc) : (CT)0;
+      }
+    }
+    __syncthreads();
+    // Step 3: the merge in chunk order (the running max from the maxima).
+    CT mp = neg_inf<CT>(), den = 0;
+    for (int j = 0; j < nc; ++j) {
+      den = (mp == neg_inf<CT>()) ? csum_sh[j] : den * step_sh[j] + csum_sh[j];
+      mp = cmax(mp, cmax_sh[j]);
+    }
+    const CT crow = cnt / den;
+    if (threadIdx.x == 0) {
+      const CT lse = mp + clog(den);
+      lse_out[e] = lse;
+      acc += (double)(cnt * (lse - lp));
+    }
+    // Step 4: the weights into the lane's columns.
+    if (own) {
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) cacc[i] += (double)(x[i] * crow);
+    }
+  }
+  if (own) {
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) {
+      const int64_t g = slot_col(c0, i, lane);
+      if (g < G) cols[g] = cacc[i];
+    }
+  }
+  if (threadIdx.x == 0) part_scalar[blockIdx.x] = acc;
+}
+
+// The pair build (CHUNK < G <= 2 CHUNK): the one-chunk build's layout with
+// the row's two chunks in registers, 32 cells a lane, a warp a row, and a
+// tile of weights in shared memory for phase B.
+template <typename LT, typename CT>
+__global__ void __launch_bounds__(THREADS, EM_WIDE_CTAS)
+em_step_pair_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
+                    const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
+                    const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
+                    int64_t tq, int64_t tr, int tile, int64_t slab,
+                    CT* __restrict__ lse_out, double* __restrict__ part_scalar,
+                    double* __restrict__ part_cols) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  CT* __restrict__ wt = reinterpret_cast<CT*>(smem);  // (tile, G) weights
+  __shared__ CT rowres[TILE_ROWS];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int64_t lo, hi;
+  split_rows(blockIdx.x, E, tq, tr, lo, hi);
+  double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
+  if (done != nullptr && *done) {
+    for (int64_t g = threadIdx.x; g < G; g += THREADS) cols[g] = 0.0;
+    for (int64_t e = lo + threadIdx.x; e < hi; e += THREADS) lse_out[e] = 0;
+    if (threadIdx.x == 0) part_scalar[blockIdx.x] = 0.0;
+    return;
+  }
+  double acc = 0.0;  // read by thread 0 only
+  constexpr int NCOL = 2 * CHUNK / THREADS;
+  double cacc[NCOL];
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) cacc[j] = 0.0;
+  for (int64_t t0 = lo; t0 < hi; t0 += tile) {
+    const int nr = (int)((hi - t0 < tile) ? hi - t0 : tile);
+    for (int r = warp; r < nr; r += WARPS) {
+      const int64_t e = t0 + r;
+      const LT* row = logL + e * G;
+      const CT cnt = (CT)counts[e];
+      CT x0[NPL], x1[NPL];
+      {
+        LT L0[NPL], L1[NPL];
+        CT lt[NPL];
+        load_row_chunk(row, 0, G, vec, lane, L0);
+        load_row_chunk(row, CHUNK, G, vec, lane, L1);
+        load_cols(logtheta, 0, G, lane, lt);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x0[i] = (CT)L0[i] + lt[i];
+        load_cols(logtheta, CHUNK, G, lane, lt);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x1[i] = (CT)L1[i] + lt[i];
+      }
+      CT mx[2] = {x0[0], x1[0]};
+#pragma unroll
+      for (int i = 1; i < NPL; ++i) {
+        mx[0] = cmax(mx[0], x0[i]);
+        mx[1] = cmax(mx[1], x1[i]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const CT a = __shfl_xor_sync(0xffffffffu, mx[0], o);
+        const CT b = __shfl_xor_sync(0xffffffffu, mx[1], o);
+        mx[0] = cmax(mx[0], a);
+        mx[1] = cmax(mx[1], b);
+      }
+      const CT M0 = cmax(neg_inf<CT>(), mx[0]), m = cmax(M0, mx[1]);
+      CT cs[2] = {0, 0};
+      if (M0 == m) {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x0[i] = x0[i] - M0;
+        row_exps(x0);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) cs[0] += x0[i];
+      } else {  // chunk 0's sum at M0, its weights' exps at m
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) cs[0] += em_exp(x0[i] - M0);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x0[i] = x0[i] - m;
+        row_exps(x0);
+      }
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) x1[i] = x1[i] - m;
+      row_exps(x1);
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) cs[1] += x1[i];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const CT a = __shfl_xor_sync(0xffffffffu, cs[0], o);
+        const CT b = __shfl_xor_sync(0xffffffffu, cs[1], o);
+        cs[0] += a;
+        cs[1] += b;
+      }
+      const CT den = (M0 == neg_inf<CT>()) ? cs[1] : cs[0] * cexp(M0 - m) + cs[1];
+      const CT crow = cnt / den, lse = m + clog(den);
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        x0[i] = x0[i] * crow;
+        x1[i] = x1[i] * crow;
+      }
+      store_row_chunk(wt + (int64_t)r * G, 0, G, lane, x0);
+      store_row_chunk(wt + (int64_t)r * G, CHUNK, G, lane, x1);
+      if (lane == 0) {
+        lse_out[e] = lse;
+        rowres[r] = cnt * (lse - lse_prev[e]);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int r = 0; r < nr; ++r) acc += (double)rowres[r];
+    }
+    for (int r = 0; r < nr; ++r) {
+#pragma unroll
+      for (int j = 0; j < NCOL; ++j) {
+        const int64_t g = threadIdx.x + j * THREADS;
+        if (g < G) cacc[j] += (double)wt[(int64_t)r * G + g];
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) {
+    const int64_t g = threadIdx.x + j * THREADS;
+    if (g < G) cols[g] = cacc[j];
+  }
+  if (threadIdx.x == 0) part_scalar[blockIdx.x] = acc;
+}
+
+// What G columns run: the build (EmBuild), its kernel, its tile (rows of
+// weights, or the owned build's rows in flight), its columns (the direct
+// build's slab, else G) and the dynamic shared memory, each tile sized to
+// the kernel's shared-memory budget (read from the runtime once per
+// device).
+struct EmPlan {
+  int build = EM_ONE_CHUNK;
+  const void* kernel = nullptr;
+  int tile = 0;
+  int64_t slab = 0;
+  size_t smem = 0;
+};
+
+// The one-chunk and direct builds.  The direct build's slab is the row's
 // chunks, at most as many as WARPS rows of weights fit in the budget.
 template <typename LT, typename CT, bool ONE_CHUNK>
-static cudaError_t em_plan_one(int64_t G, const void*& kernel, int& tile, int64_t& slab,
-                               size_t& smem) {
+static cudaError_t em_plan_one(int64_t G, EmPlan& p) {
   static WtileBudget cache;
   int64_t budget = 0;
-  kernel = (const void*)em_step_kernel<LT, CT, ONE_CHUNK>;
-  cudaError_t err = wtile_budget(kernel, EM_CTAS<ONE_CHUNK>, cache, budget);
+  p.build = ONE_CHUNK ? EM_ONE_CHUNK : EM_DIRECT;
+  p.kernel = (const void*)em_step_kernel<LT, CT, ONE_CHUNK>;
+  cudaError_t err = wtile_budget(p.kernel, EM_CTAS<ONE_CHUNK>, cache, budget);
   if (ONE_CHUNK) {
-    slab = G > 0 ? G : 1;
+    p.slab = G > 0 ? G : 1;
   } else {
     const int64_t nch = (G + CHUNK - 1) / CHUNK;
     const int64_t fit = budget / ((int64_t)WARPS * CHUNK * (int64_t)sizeof(CT));
-    slab = (nch < fit ? nch : fit) * CHUNK;
+    p.slab = (nch < fit ? nch : fit) * CHUNK;
   }
-  const int64_t row_bytes = slab * (int64_t)sizeof(CT);
-  tile = row_bytes > 0 ? wtile_rows(budget, row_bytes) : 0;
-  smem = (size_t)tile * row_bytes;
+  const int64_t row_bytes = p.slab * (int64_t)sizeof(CT);
+  p.tile = row_bytes > 0 ? wtile_rows(budget, row_bytes) : 0;
+  p.smem = (size_t)p.tile * row_bytes;
   // No tile of weights fits (not so on an H100).
-  if (err == cudaSuccess && tile == 0) err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess && p.tile == 0) err = cudaErrorInvalidConfiguration;
   return err;
 }
 
+// G <= CHUNK: one chunk; else the pair build (G <= 2 CHUNK), else the
+// owned build where it takes G and two rows fit, else direct.
 template <typename LT, typename CT>
-static cudaError_t em_plan(int64_t G, const void*& kernel, int& tile, int64_t& slab,
-                           size_t& smem) {
-  return G <= CHUNK ? em_plan_one<LT, CT, true>(G, kernel, tile, slab, smem)
-                    : em_plan_one<LT, CT, false>(G, kernel, tile, slab, smem);
+static cudaError_t em_plan(int64_t G, EmPlan& p) {
+  if (G <= CHUNK) return em_plan_one<LT, CT, true>(G, p);
+  int64_t budget = 0;
+  cudaError_t err = cudaSuccess;
+  if (G <= 2 * CHUNK) {
+    static WtileBudget pair_cache;
+    p.build = EM_PAIR;
+    p.kernel = (const void*)em_step_pair_kernel<LT, CT>;
+    err = wtile_budget(p.kernel, EM_WIDE_CTAS, pair_cache, budget);
+    p.slab = G;
+    p.tile = wtile_rows(budget, G * (int64_t)sizeof(CT));
+    p.smem = (size_t)p.tile * G * sizeof(CT);
+    if (err == cudaSuccess && p.tile == 0) err = cudaErrorInvalidConfiguration;
+    return err;
+  }
+  static WtileBudget owned_cache;
+  const void* owned = (const void*)em_step_owned_kernel<LT, CT>;
+  err = wtile_budget(owned, EM_WIDE_CTAS, owned_cache, budget);
+  if (err != cudaSuccess) return err;
+  const int stages = owned_stages(G, (int64_t)sizeof(CT), budget);
+  if (stages == 0) return em_plan_one<LT, CT, false>(G, p);
+  p.build = EM_OWNED;
+  p.kernel = owned;
+  p.tile = stages;
+  p.slab = G;
+  p.smem = (size_t)owned_bytes(G, (int64_t)sizeof(CT), stages);
+  return cudaSuccess;
 }
 
 template <typename LT, typename CT>
@@ -215,18 +643,15 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
                           int64_t n_cta, void* lse_out, void* part_scalar, void* part_cols,
                           void* out_scalar, void* out_cols, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const void* kernel = nullptr;
-  int tile = 0;
-  int64_t slab = 0;
-  size_t smem = 0;
-  cudaError_t err = em_plan<LT, CT>(G, kernel, tile, slab, smem);
+  EmPlan plan;
+  cudaError_t err = em_plan<LT, CT>(G, plan);
   if (err != cudaSuccess) return (int)err;
   bool vec = vector_rows(logL, G);
   int64_t tq = 0, tr = 0;
   split_plan(E, n_cta, tq, tr);
   void* args[] = {&logL, &counts, &lse_prev, &logtheta, &done, &E, &G, &vec, &tq, &tr,
-                  &tile, &slab, &lse_out, &part_scalar, &part_cols};
-  err = cudaLaunchKernel(kernel, dim3((unsigned)n_cta), dim3(THREADS), args, smem, s);
+                  &plan.tile, &plan.slab, &lse_out, &part_scalar, &part_cols};
+  err = cudaLaunchKernel(plan.kernel, dim3((unsigned)n_cta), dim3(THREADS), args, plan.smem, s);
   if (err != cudaSuccess) return (int)err;
   rcg_reduce_scalar<<<1, 32, 0, s>>>((const double*)part_scalar, n_cta, (double*)out_scalar);
   err = cudaGetLastError();
@@ -238,26 +663,25 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
 }
 
 // out = {registers a thread, local (spilled) bytes a thread, rows and
-// columns of the tile of weights at G columns, CTAs resident an SM at that
-// tile}, for the instantiation that G columns run, on the current device.
+// columns of the tile at G columns, CTAs resident an SM at that tile, the
+// build (EmBuild)}, for the kernel that G columns run, on the current
+// device.
 template <typename LT, typename CT>
 static int info_em_step(int64_t G, int* out) {
-  const void* kernel = nullptr;
-  int tile = 0;
-  int64_t slab = 0;
-  size_t smem = 0;
-  cudaError_t err = em_plan<LT, CT>(G, kernel, tile, slab, smem);
+  EmPlan plan;
+  cudaError_t err = em_plan<LT, CT>(G, plan);
   cudaFuncAttributes attr;
   int ctas = 0;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, plan.kernel);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, plan.kernel, THREADS, plan.smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  out[2] = tile;
-  out[3] = (int)slab;
+  out[2] = plan.tile;
+  out[3] = (int)plan.slab;
   out[4] = ctas;
+  out[5] = plan.build;
   return 0;
 }
 
@@ -306,7 +730,7 @@ extern "C" int em_exp_check(int64_t n, void* bad, void* first, void* stream) {
 // n_cta is the number of row ranges (rcg_common.cuh split_plan), one CTA
 // each.  part_scalar is scratch of n_cta doubles,
 // part_cols of n_cta * G; out_scalar is one double (ddot), out_cols G
-// doubles (colsum); all on the device.  em_step_info_* fills five ints
+// doubles (colsum); all on the device.  em_step_info_* fills six ints
 // (rcg::info_em_step).  Both return a CUDA error.
 #define EM_STEP_ENTRY(NAME, LT, CT)                                                          \
   extern "C" int NAME(const void* logL, const void* counts, const void* lse_prev,            \

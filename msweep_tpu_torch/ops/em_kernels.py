@@ -99,12 +99,76 @@ def read_info(entry: str, G: int, device_index: int, n: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+# K5's builds (csrc/em_step.cu EmBuild), by the number its *_info reports.
+EM_BUILDS = ("one_chunk", "pair", "owned", "direct")
+# Ints that K5's *_info entry fills (em_step.cu info_em_step); the last is
+# the build's number.
+K5_INFO = ("registers", "spill_bytes", "tile_rows", "tile_cols", "ctas_per_sm", "build")
+# csrc/rcg_common.cuh and em_step.cu constants that the plan reads.
+CHUNK, WARPS, TILE_ROWS = 512, 8, 32
+OWNED_MIN_CHUNKS, OWNED_STAGES = 5, 4
+# An H100's shared memory (bytes): an SM's, the runtime's reserve a CTA,
+# and the most one CTA may opt in to.
+H100_SMEM = (233_472, 1_024, 232_448)
+
+
+def owned_bytes(G: int, itemsize: int, stages: int) -> int:
+    """Dynamic shared memory of K5's owned build at G columns and `stages`
+    rows in flight (em_step.cu owned_bytes): logtheta and each warp's ring
+    of its chunk, NC chunks each, and six (8,) arrays of chunk scalars."""
+    chunk_bytes = -(-G // CHUNK) * CHUNK * itemsize
+    return chunk_bytes + -(-6 * WARPS * itemsize // 16) * 16 + stages * chunk_bytes
+
+
+def _budget(ctas: int, static: int, smem: tuple[int, int, int]) -> int:
+    """rcg_common.cuh wtile_budget: a CTA's share of the SM's shared memory
+    at `ctas` CTAs an SM, less the reserve, at most the opt-in maximum,
+    less the kernel's static arrays."""
+    per_sm, reserved, optin = smem
+    return max(0, min(per_sm // ctas - reserved, optin) - static)
+
+
+def _wtile_rows(budget: int, row_bytes: int) -> int:
+    """rcg_common.cuh wtile_rows."""
+    r = budget // row_bytes
+    return min(r - r % WARPS, TILE_ROWS) if r >= WARPS else r
+
+
+def em_build(G: int, itemsize: int, smem: tuple[int, int, int] = H100_SMEM) -> tuple[str, int]:
+    """(build, tile) that K5 runs at G columns of `itemsize`-byte cells
+    (em_step.cu em_plan) on a card with `smem` = (shared memory an SM,
+    reserve a CTA, opt-in maximum a CTA): rows of one chunk the one-chunk
+    build (three CTAs an SM), 512 < G <= 1,024 the pair build, rows of
+    OWNED_MIN_CHUNKS to 8 chunks (2,048 < G <= 4,096) the owned build with
+    as many rows in flight as fit (at most OWNED_STAGES, at least two),
+    every other width the direct build, whose rows are read from device
+    memory twice.  The tile is the rows of weights in shared memory, or
+    the owned build's rows in flight.  The one-chunk, pair and direct
+    builds hold 3, 1 and 3 arrays of 32 cells in static shared memory."""
+    if G <= CHUNK:
+        return "one_chunk", _wtile_rows(_budget(3, 3 * TILE_ROWS * itemsize, smem),
+                                        max(G, 1) * itemsize)
+    if G <= 2 * CHUNK:
+        return "pair", _wtile_rows(_budget(2, TILE_ROWS * itemsize, smem), G * itemsize)
+    if OWNED_MIN_CHUNKS <= -(-G // CHUNK) <= WARPS:
+        budget = _budget(2, 0, smem)
+        stages = next((n for n in range(OWNED_STAGES, 1, -1)
+                       if owned_bytes(G, itemsize, n) <= budget), 0)
+        if stages:
+            return "owned", stages
+    budget = _budget(2, 3 * TILE_ROWS * itemsize, smem)
+    slab = min(-(-G // CHUNK), budget // (WARPS * CHUNK * itemsize)) * CHUNK
+    return "direct", _wtile_rows(budget, slab * itemsize)
+
+
 def kernel_info(suffix: str, G: int, device_index: int) -> dict:
-    """K5's build and launch at G columns on a card: registers and local
-    (spilled) bytes a thread, rows and columns of its tile of weights and
-    CTAs resident an SM, from the runtime (em_step.cu info_em_step)."""
-    info = dict(zip(("registers", "spill_bytes", "tile_rows", "tile_cols", "ctas_per_sm"),
-                    read_info(f"em_step_{suffix}_info", G, device_index, 5)))
+    """K5's build and launch at G columns on a card (K5_INFO, from the
+    runtime, em_step.cu info_em_step): registers and local (spilled) bytes
+    a thread, its tile (rows of weights, or the owned build's rows in
+    flight) and columns, CTAs resident an SM, and the build's name
+    (EM_BUILDS)."""
+    info = dict(zip(K5_INFO, read_info(f"em_step_{suffix}_info", G, device_index, len(K5_INFO))))
+    info["build"] = EM_BUILDS[info["build"]]
     if info["ctas_per_sm"] < 1:
         raise RuntimeError(f"em_step_{suffix} cannot run at G={G}: {info}")
     return info

@@ -11,15 +11,17 @@ times 2, counts in 1..39, ~20% of theta at 0, lse_prev near the row
 logsumexps), so the times compare with that phase's.  The first line is
 the card's name and power limit (nvidia-smi); then one JSON object a line
 for each shape and type: the kernel's ms a pass (CUDA events, the mean of
---reps calls after one warm-up), checksums of its outputs, and the
-registers, spills, tile rows and CTAs an SM where the tree's em_kernels
-reports them (kernel_info).  Run it as a file, not with -m, so that the
+--reps calls after one warm-up), checksums of its outputs and a SHA-256
+of their bytes (two trees with the same row ranges give the same digest
+where they give the same bits), and the registers, spills, tile rows, CTAs
+an SM and build where the tree's em_kernels reports them (kernel_info).  Run it as a file, not with -m, so that the
 tree's package is the one imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -100,7 +102,9 @@ def main(argv=None) -> int:
             rec = dict(tree=args.tree, E=E, G=G, tail=args.tail, dtype=str(dtype).split(".")[-1],
                        ms=ms,
                        lse_sum=float(lse.to(torch.float64).sum()),
-                       colsum_sum=float(colsum.sum()), ddot=float(ddot))
+                       colsum_sum=float(colsum.sum()), ddot=float(ddot),
+                       digest=hashlib.sha256(b"".join(
+                           x.cpu().numpy().tobytes() for x in (lse, colsum, ddot))).hexdigest())
             if hasattr(KE, "kernel_info"):
                 rec.update(KE.kernel_info(KE.INSTANTIATIONS[dtype], G,
                                           torch.cuda.current_device()))

@@ -2,13 +2,18 @@
 the checkout given by --tree, so that two versions of the optimizer loops
 can be compared in one call:
 
-    python3 msweep_tpu_torch/time_fits.py --tree DIR [--algo rcg,em]
+    python3 msweep_tpu_torch/time_fits.py --tree DIR [--algo rcg,em,em64,em_wide]
 
 DIR is the root of a checkout: its msweep_tpu_torch/ is imported and its
-kernels are built there (before the clock starts).  Both fits run on the
+kernels are built there (before the clock starts).  rcg and em run on the
 synthetic community of phase 5 (2,301,952 x 512, seed 1): rcg packed in
 float32 with the escalation tail (fit_result "rcgcpu", tol 1e-6), EM
-packed in float64 (fit_result "emgpu", tol 1e-6, its 5000-iteration cap).
+packed in float64 (fit_result "emgpu", tol 1e-6, its 5000-iteration cap);
+em64 is chip_smoke.py phase 11's 64 float64 EM iterations (tol -1) there.
+em_wide is chip_smoke.py phase 12's serial EM at 1,024 groups: the
+problem drawn by this checkout's chip_smoke.py (_wide_problem), whatever
+DIR is, and fit_em_result in float64 for its SERIAL_WIDE_ITERS iterations
+in chunks of 64 (PARENT["em_wide"] there is the parent tree's objective).
 The first line is the card's name and power limit (nvidia-smi); then one
 JSON object a line for each fit: its seconds (host clock, the fit alone,
 ended by reading its result), iterations, objective (repr, to the bit) and
@@ -49,26 +54,64 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     _build.load()
+    algos = args.algo.split(",")
+    if "em_wide" in algos:
+        _em_wide(torch, args.tree, KE)
+    if not set(algos) - {"em_wide"}:
+        return 0
     lik = make_community_likelihood(2_301_952, 512, seed=1, similarity=0.99, cluster_size=8,
                                     present_frac=0.06)
-    runs = {"rcg": (torch.float32, "rcgcpu", (K.rcg_norm_kernel, K.rcg_update_kernel)),
-            "em": (torch.float64, "emgpu", (KE.em_step_kernel,))}
-    for algo in args.algo.split(","):
-        dtype, name, counters = runs[algo]
+    to_tol = dict(tol=1e-6, max_iters=5000)
+    runs = {"rcg": (torch.float32, "rcgcpu", (K.rcg_norm_kernel, K.rcg_update_kernel), to_tol),
+            "em": (torch.float64, "emgpu", (KE.em_step_kernel,), to_tol),
+            "em64": (torch.float64, "emgpu", (KE.em_step_kernel,), dict(tol=-1.0, max_iters=64))}
+    for algo in algos:
+        if algo == "em_wide":
+            continue
+        dtype, name, counters, kw = runs[algo]
         p = pack_problem(lik, dtype=dtype, device=torch.device("cuda"))
         for fn in counters:
             fn.launches = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = fit_result(p, name, tol=1e-6, max_iters=5000)
+        res = fit_result(p, name, **kw)
         iters, objective = int(res.n_iters), float(res.objective)
         fit_s = time.perf_counter() - t
-        print(json.dumps(dict(tree=args.tree, algo=name, dtype=str(dtype).split(".")[-1],
+        print(json.dumps(dict(tree=args.tree, algo=algo, dtype=str(dtype).split(".")[-1],
                               fit_s=fit_s, iters=iters, objective=repr(objective),
                               **{fn.__name__: fn.launches for fn in counters})), flush=True)
         del p, res
         torch.cuda.empty_cache()
     return 0
+
+
+def _em_wide(torch, tree, KE):
+    """chip_smoke.py phase 12's serial EM at 1,024 groups with the tree's
+    package: one JSON line (seconds, ms an iteration, objective, K5's
+    launches)."""
+    import importlib.util
+
+    from msweep_tpu_torch.inference import fit_em_result
+
+    here = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_draw", here)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    p, _ = cs._wide_problem(torch)
+    iters = cs.SERIAL_WIDE_ITERS
+    KE.em_step_kernel.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fit_em_result(p, tol=-1.0, max_iters=iters, chunk=64)
+    n_iters, objective = int(res.n_iters), float(res.objective)
+    fit_s = time.perf_counter() - t
+    print(json.dumps(dict(tree=tree, algo="em_wide", E=p.n_ecs, G=p.n_groups, fit_s=fit_s,
+                          ms_per_iter=fit_s * 1e3 / iters, iters=n_iters,
+                          objective=repr(objective),
+                          em_step_kernel=KE.em_step_kernel.launches)), flush=True)
+    del p, res
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -67,11 +67,12 @@ def _t(x, dtype=None):
 
 @pytest.mark.parametrize("E,G,seed,padded", [
     (64, 384, 0, False), (128, 256, 5, False), (512, 128, 11, False), (56, 200, 13, True),
-    (64, 640, 17, False), (56, 1152, 19, True),
+    (64, 640, 17, False), (56, 1152, 19, True), (40, 1537, 41, False),
 ])
 def test_em_step_plain_matches_pallas(E, G, seed, padded):
     """Plain K5 against the Pallas kernel in interpret mode, float32, at
-    rows narrower and wider than the CUDA kernel's 512-column chunk.  The
+    rows narrower and wider than the CUDA kernel's 512-column chunk (up to
+    three chunks and a one-column tail).  The
     Pallas kernel sums its partials in float32 across the grid, the port in
     float64, so lse and colsum agree to float32 round-off (rtol 1e-5) and
     ddot to 1e-5 of sum_e |c_e lse_e|, the scale of its terms."""
@@ -111,12 +112,13 @@ def test_em_step_plain_f64_matches_jnp_estep(E, G, seed):
     np.testing.assert_allclose(float(ddot), float(ddot_w), rtol=1e-12)
 
 
-@pytest.mark.parametrize("E,G,seed", [(128, 256, 5), (512, 128, 11)])
+@pytest.mark.parametrize("E,G,seed", [(128, 256, 5), (512, 128, 11), (96, 1100, 7)])
 def test_em_fit_matches_jax(E, G, seed):
     """tests/test_pallas.py::test_em_pallas_matches_xla's bars, against
     both JAX implementations: the stopping iterations within max(5, it/10)
     and the objective within rtol 1e-5; theta to file precision (atol
-    1e-6) at a fixed 200 iterations.
+    1e-6) at a fixed 200 iterations.  The last case has rows of three
+    chunks, the rows K5's wide builds take on the card.
 
     The stopping iteration is compared at tol 1e-2, not 1e-4: on these
     problems the float32 deltas near 1e-4 are noise (float32 runs stop at
@@ -217,6 +219,39 @@ def test_cpu_tensors_take_the_plain_em_step():
     assert np.subtract(after, before).tolist() == [1 + 16 + 1, 0]
 
 
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_em_build_by_width(itemsize):
+    """K5's build by G at an H100's shared memory, G = 513 to 30,000: the
+    pair build to 1,024 columns (a tile of weights for every warp), the
+    owned build for rows of five to eight chunks (2,049 to 4,096 columns)
+    with the most rows in flight (two to four) whose rings fit beside
+    logtheta, and the direct build with a tile of weights for every warp
+    at the other widths."""
+    budget = K._budget(2, 0, K.H100_SMEM)
+    for G in list(range(513, 4200, 7)) + [2048, 2049, 4096, 4097, 8192, 29_000, 30_000]:
+        build, tile = K.em_build(G, itemsize)
+        if G <= 1024:
+            assert build == "pair" and tile >= K.WARPS, G
+        elif 2048 < G <= 4096:
+            assert build == "owned" and 2 <= tile <= K.OWNED_STAGES, G
+            assert K.owned_bytes(G, itemsize, tile) <= budget
+            assert tile == K.OWNED_STAGES or K.owned_bytes(G, itemsize, tile + 1) > budget
+        else:
+            assert build == "direct" and tile >= K.WARPS, G
+
+
+@pytest.mark.parametrize("G,itemsize,want", [
+    (512, 8, ("one_chunk", 16)), (513, 8, ("pair", 24)), (1024, 8, ("pair", 8)),
+    (1024, 4, ("pair", 24)), (1025, 8, ("direct", 8)), (2048, 4, ("direct", 8)),
+    (2049, 8, ("owned", 4)), (4096, 8, ("owned", 2)), (4096, 4, ("owned", 4)),
+    (4097, 8, ("direct", 8)), (30_000, 4, ("direct", 8))])
+def test_em_build_pins(G, itemsize, want):
+    """The builds and tiles at the widths the card's checks run (phase 3,
+    test_cuda_em_kernel_matches_plain), as em_step.cu em_plan picks them
+    on an H100 (chip_smoke.py phase 3 holds the runtime's to em_build)."""
+    assert K.em_build(G, itemsize) == want
+
+
 def test_em_kernel_wrapper_validates_before_launch():
     L = torch.zeros((8, 4), dtype=torch.float64)
     cnt, lse, lt = torch.ones(8, dtype=torch.float64), torch.zeros(8), torch.zeros(4)
@@ -242,14 +277,20 @@ def cuda_device():
     (4091, 300, True),  # tile mode, a ragged padded problem
     (37, 33, False), (1, 1, False),
     (4099, 1152, False), (777, 5000, False),  # rows of several 512-column chunks
-    (53, 1537, False),  # a ragged last slab, scalar loads
+    (53, 1537, False),  # a ragged last chunk, scalar loads
     (9, 30_000, False),  # rows of many slabs
+    (3001, 1024, False), (3001, 1025, False),  # the pair build, and the direct one
+    (301, 2048, False), (301, 2049, False),  # the direct build, and the owned one
+    (301, 4096, False), (301, 4097, False),  # the owned build, and the direct one
+    (53, 2501, False),  # the owned build on a ragged last chunk, scalar loads
 ])
 @pytest.mark.parametrize("dtype", list(K.INSTANTIATIONS))
 def test_cuda_em_kernel_matches_plain(cuda_device, dtype, E, G, padded):
     """Each instantiation of K5 against its plain version on the card, on
-    rows of one chunk, of several and of several slabs of weights; a rerun
-    gives the same bits."""
+    rows of one chunk, of two (the pair build), of five to eight (the
+    owned build) and of several slabs of weights (the direct build), on
+    each side of the bounds between builds (ops/em_kernels.py em_build); a
+    rerun gives the same bits."""
     logL, counts, alpha, _ = _problem(E, G, 37)
     if padded:
         logL, counts, alpha = _pad(logL, counts, alpha)

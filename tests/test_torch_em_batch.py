@@ -443,7 +443,7 @@ def test_cuda_one_chunk_batch_exp_range(cuda_device, dtype, E, G):
 def test_cuda_wide_batch_is_k5_per_replicate(cuda_device, dtype, E, G, B):
     """K6's wide build (G > 512: the one-chunk layout run chunk column by
     chunk column, three passes) on the row ranges it shares with K5:
-    replicate b gives K5's bits on column b (its general build) at a
+    replicate b gives K5's bits on column b (its wide builds) at a
     one-column tail chunk (513), two and three chunk columns, eight, 59
     (a row wider than shared memory holds) and E = 0, at B in 1, 3, 8 and
     13 (a second replicate block); a rerun gives the same bits; a done

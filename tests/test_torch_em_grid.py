@@ -69,7 +69,8 @@ class _Launches(list):
 def _fake_card(monkeypatch, k6_ctas=2):
     """The CUDA calls of the K5 and K6 wrappers faked on the CPU: an H100's
     132 SMs, the *_info entries of K5's builds (3 CTAs an SM for rows of
-    one chunk, 2 for its general build: the fifth int) and of K6's
+    one chunk, 2 for its wide builds: the fifth of six ints, the sixth the
+    build) and of K6's
     (`k6_ctas`, the fourth of six; the sixth its chunk columns, 0 for rows
     of one chunk), and a library whose em_step and em_step_batch entries
     record the range count each launch takes (argument 7 of em_step's,
@@ -80,7 +81,7 @@ def _fake_card(monkeypatch, k6_ctas=2):
     def read_info(entry, G, index, n):
         wide = G > 512
         if entry == "em_step_f64_f64_info":
-            return (128, 0, 8, 1536, 2) if wide else (80, 0, 32, 512, 3)
+            return (128, 0, 8, G, 2, 1) if wide else (80, 0, 32, 512, 3, 0)
         assert entry == "em_step_batch_f64_f64_info" and n == 6
         return (128, 0, 10 if wide else 6, k6_ctas, 2, -(-G // 512) if wide else 0)
 
@@ -138,8 +139,8 @@ def test_k5_and_k6_take_the_same_ranges(monkeypatch):
     pytest.param(3, 792, 1537, id="G1537-3-792"), pytest.param(4, 528, 4096, id="G4096-4-528")])
 def test_k5_ranges_follow_k6_build(monkeypatch, k6_ctas, n, G):
     """K5's numerics follow K6's build: K5's range count is lcm(K5's CTAs
-    an SM, K6's) x 132, 3 for K5's one-chunk build and 2 for its general
-    one (G > 512), so a change to the CTAs an SM of the K6 build that
+    an SM, K6's) x 132, 3 for K5's one-chunk build and 2 for its wide builds
+    (G > 512), so a change to the CTAs an SM of the K6 build that
     runs at G (em_step_batch.cu RepBuild::ctas, or WideBuild::ctas beyond
     512 columns) moves K5's ranges there, and its bits by round-off; the
     wide build's two (float32) or one (float64) keep K5's 264."""

@@ -30,7 +30,11 @@ Phases (each raises on failure, and the script exits non-zero):
    builds against their plain version, the build as ops/em_kernels.py
    em_build predicts it, and their time, bound and share of it, then K6
    at B = 8: K5's bits, its time beside 8 K5 passes over the same
-   columns, its bound and its build; then kernel and plain times at
+   columns, its bound and its build; at 575,488 x 2,048 and 1,149,856 x
+   1,025, in both types, K5's spread build (rows of three and four
+   chunks) against its plain version, its build as em_build predicts it,
+   its time, bound, share, registers, spills and CTAs an SM; then kernel
+   and plain times at
    2,301,952 x 512 (K3/K4/K6 at B = 8; K6 also beside 8 K5 passes over
    the same columns), each beside its bound (the larger of the bytes it
    must move at 3.35 TB/s and its operations at the data sheet's peak;
@@ -102,7 +106,8 @@ Phases (each raises on failure, and the script exits non-zero):
    iteration and peak device memory; then serial EM on the same problem
    (fit_em_result, float64, 128 iterations, every pass K5's wide build),
    ms an iteration beside K5's ms a pass, both projected to the
-   5000-iteration cap, and the objective beside the parent's.
+   5000-iteration cap, and the objective beside the parent's; then the
+   same serial leg at 575,488 x 2,048 groups on K5's spread build.
 
 Each path of 5-12 sets its kernels' launch counters to 0 just before it
 runs and reads them just after.
@@ -157,19 +162,26 @@ WIDE_EM_SHAPES = [(4_097, 1_024), (1_000, 1_537), (1_000, 2_501)]
 # the first for WIDE_FIT_ITERS iterations.
 WIDE_TIMED = [(1_150_976, 1_024), (287_744, 4_096)]
 WIDE_FIT_ITERS = 32
-SERIAL_WIDE_ITERS = 128  # phase 12's serial EM at 1,024 groups
+SERIAL_WIDE_ITERS = 128  # phase 12's serial EM at 1,024 and 2,048 groups
+# K5's spread build (rows of three and four chunks) timed at the same
+# cells: four whole chunks, and three with a one-column tail.  Phase 12
+# fits the first serially for SERIAL_WIDE_ITERS iterations.
+BAND_TIMED = [(575_488, 2_048), (1_149_856, 1_025)]
 SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 # What the parent tree's fits gave on the card (iterations, objective):
 # phase 5's and phase 11's rcg fit from chip_smoke.py at commit cd88794;
 # phase 6's EM fit at its cap, phase 11's 64 float64 EM iterations and
 # phase 12's serial EM at 1,024 groups from msweep_tpu_torch/time_fits.py
-# --algo em,em64,em_wide --tree at commit 6ddcd33 (the shared row ranges
+# --algo em,em64,em_wide --tree at commit 6ddcd33, and at 2,048 groups
+# (--algo em_band) at commit 3db7750, whose K5 ran the direct build there
+# (the shared row ranges
 # of commit c986e96 moved the first two by an ulp from their cd88794
 # values).  The loops moved onto the device keep each scalar operation
 # and its order, and K5's wide builds its values and row ranges, so a run
 # gives these to the bit.
 PARENT = {"rcg": (499, -18682388.05370243), "em": (5000, -18677316.4564224),
-          "em64": (64, -18704662.12176759), "em_wide": (SERIAL_WIDE_ITERS, -159560435.6141998)}
+          "em64": (64, -18704662.12176759), "em_wide": (SERIAL_WIDE_ITERS, -159560435.6141998),
+          "em_band": (SERIAL_WIDE_ITERS, -87619582.60160309)}
 DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a live pass
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
@@ -708,11 +720,38 @@ def _k6_issue(torch, KEB, E, G, B, lsize, csize, census, suffix):
                                       info["rows_at_once"], sms, HBM_BYTES_PER_S)
 
 
+def _time_k5(torch, KE, L, em_in, exp_instr, record=False):
+    """K5 on L (E, G) at G > 512: against its plain version (_check_em),
+    its build as ops/em_kernels.py em_build predicts it at this card's
+    shared memory, its ms a pass (CUDA events), bound and share of it,
+    registers, spills, tile, CTAs an SM and row ranges.  Returns, with
+    `record`, its kernels-record entry (else None)."""
+    E, G = L.shape
+    suffix = KE.INSTANTIATIONS[L.dtype]
+    dev = torch.cuda.current_device()
+    err = _check_em(torch, KE, L, em_in, f"E={E} G={G} {suffix}")
+    ms = _time_ms(torch, lambda: KE.em_step_kernel(L, *em_in), 10)
+    bms, by = bound_ms("em_step", E, G, L.element_size(), L.element_size(), exp_instr)
+    info = KE.kernel_info(suffix, G, dev)
+    want = KE.em_build(G, L.element_size())
+    _say(f"  em_step {suffix} at E={E} G={G}: {ms:.4f} ms, bound {bms:.4f} ms ({by}), share of "
+         f"bound {bms / ms:.3f}; {info['build']} build, {info['registers']} registers, "
+         f"{info['spill_bytes']} local (spilled) bytes a thread, tile of {info['tile_rows']} "
+         f"rows, {info['ctas_per_sm']} CTAs an SM, {KE.ranges(suffix, E, G, L.device)} row "
+         f"ranges (em_build at an H100's shared memory: {want}); max abs err {err:.3e}")
+    if ("H100" in torch.cuda.get_device_properties(dev).name
+            and (info["build"], info["tile_rows"]) != want):
+        raise AssertionError(f"K5 runs {info} at G={G}, em_build says {want}")
+    if not record:
+        return None
+    plain_ms = _time_ms(torch, lambda: KE.em_step_plain(L, *em_in), 1)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bms, bound_by=by,
+                library_ms=None)
+
+
 def _time_wide(torch, KE, KEB, exp_instr):
-    """K5's and K6's wide builds at WIDE_TIMED, in both types.  K5 against
-    its plain version (_check_em), its build as ops/em_kernels.py em_build
-    predicts it at this card's shared memory, its ms a pass (CUDA events),
-    bound and share of it.  K6 at B = 8: every replicate K5's bits at full
+    """K5's and K6's wide builds at WIDE_TIMED, in both types: K5 as
+    _time_k5 gives it, then K6 at B = 8: every replicate K5's bits at full
     size (_check_em_batch), then its ms a pass beside 8 K5 passes over the
     same columns, its bound and share of it, and its build (registers,
     spills, tile, CTAs an SM: the extremes of its three passes; chunk
@@ -721,27 +760,14 @@ def _time_wide(torch, KE, KEB, exp_instr):
     "em_step_batch_wide": {...}}."""
     record = {}
     dev = torch.cuda.current_device()
-    props = torch.cuda.get_device_properties(dev)
     for E, G in WIDE_TIMED:
         for ld, suffix in KE.INSTANTIATIONS.items():
             L, counts = _inputs(torch, E, G, ld, seed=9)[:2]
             em_in = _em_inputs(torch, L, counts, 9)
-            err5 = _check_em(torch, KE, L, em_in, f"E={E} G={G} {suffix}")
-            k5_ms = _time_ms(torch, lambda: KE.em_step_kernel(L, *em_in), 10)
-            bms5, by5 = bound_ms("em_step", E, G, L.element_size(), L.element_size(), exp_instr)
-            info5 = KE.kernel_info(suffix, G, dev)
-            want = KE.em_build(G, L.element_size())
-            _say(f"  em_step {suffix} at E={E} G={G}: {k5_ms:.4f} ms, bound {bms5:.4f} ms "
-                 f"({by5}), share of bound {bms5 / k5_ms:.3f}; {info5['build']} build, "
-                 f"{info5['registers']} registers, {info5['spill_bytes']} local (spilled) bytes a "
-                 f"thread, tile of {info5['tile_rows']} rows, {info5['ctas_per_sm']} CTAs an SM "
-                 f"(em_build at an H100's shared memory: {want}); max abs err {err5:.3e}")
-            if "H100" in props.name and (info5["build"], info5["tile_rows"]) != want:
-                raise AssertionError(f"K5 runs {info5} at G={G}, em_build says {want}")
-            if (E, G, ld) == (*WIDE_TIMED[0], torch.float64):
-                plain_ms = _time_ms(torch, lambda: KE.em_step_plain(L, *em_in), 1)
-                record["em_step_wide"] = dict(ms=k5_ms, plain_ms=plain_ms, max_abs_err=err5,
-                                              bound_ms=bms5, bound_by=by5, library_ms=None)
+            wanted = (E, G, ld) == (*WIDE_TIMED[0], torch.float64)
+            entry = _time_k5(torch, KE, L, em_in, exp_instr, wanted)
+            if wanted:
+                record["em_step_wide"] = entry
             del em_in, counts
             em_b = _em_batch_inputs(torch, L, 8, 9)
             err = _check_em_batch(torch, KE, KEB, L, em_b, f"E={E} G={G} {suffix} B=8")
@@ -760,12 +786,30 @@ def _time_wide(torch, KE, KEB, exp_instr):
                  f"{info['ctas_per_sm']} CTAs an SM (the extremes of its three passes), "
                  f"{info['chunk_columns']} chunk columns, {KE.ranges(suffix, E, G, L.device)} row "
                  f"ranges shared with K5; max abs err {err:.3e}")
-            if (E, G, ld) == (*WIDE_TIMED[0], torch.float64):
+            if wanted:
                 plain_ms = _time_ms(torch, lambda: KEB.em_step_batch_plain(L, *em_b), 1)
                 record["em_step_batch_wide"] = dict(ms=k6_ms, plain_ms=plain_ms,
                                                     max_abs_err=err, bound_ms=bms, bound_by=by,
                                                     library_ms=None)
             del L, em_b, cols8
+            torch.cuda.empty_cache()
+    return record
+
+
+def _time_band(torch, KE, exp_instr):
+    """K5's spread build at BAND_TIMED, in both types, as _time_k5 gives
+    it.  Returns the kernels record's entry for float64 at 2,048 groups,
+    the shape phase 12 fits: {"em_step_band": {...}}."""
+    record = {}
+    for E, G in BAND_TIMED:
+        for ld in KE.INSTANTIATIONS:
+            L, counts = _inputs(torch, E, G, ld, seed=9)[:2]
+            em_in = _em_inputs(torch, L, counts, 9)
+            wanted = (E, G, ld) == (*BAND_TIMED[0], torch.float64)
+            entry = _time_k5(torch, KE, L, em_in, exp_instr, wanted)
+            if wanted:
+                record["em_step_band"] = entry
+            del L, counts, em_in
             torch.cuda.empty_cache()
     return record
 
@@ -841,6 +885,7 @@ def phase_kernels(torch, exp_instr, census):
                  "row ranges: max abs err " + ", ".join(line) + "; K6 replicates = K5 bits")
             del L, counts
     record = _time_wide(torch, KE, KEB, exp_instr)
+    record.update(_time_band(torch, KE, exp_instr))
     E, G = E_FULL, G_FULL
     _say(f"  times at E={E} G={G} (CUDA events, cold L2: the matrix is larger than L2)")
     for (ld, cd), suffix in K.INSTANTIATIONS.items():
@@ -1896,21 +1941,26 @@ def phase_em_bootstrap(torch, lik):
     torch.cuda.empty_cache()
     launches["em_step_batch_wide"], launches["em_step_wide"] = _em_bootstrap_wide(torch,
                                                                                 counters)
+    p, _ = _wide_problem(torch, *BAND_TIMED[0])
+    launches["em_step_band"] = _em_serial_wide(torch, p, counters, "em_band")
+    del p
+    torch.cuda.empty_cache()
     _say(f"  phase 12 {time.perf_counter() - t0:.1f} s")
     return {name: launches[name] for name in ("em_step_batch_kernel", "em_step_batch_f32",
-                                              "em_step_batch_wide", "em_step_wide")}
+                                              "em_step_batch_wide", "em_step_wide",
+                                              "em_step_band")}
 
 
-def _wide_problem(torch):
-    """Phase 12's G = 1,024 problem: logL and counts at WIDE_TIMED[0] in
-    float64, drawn on the card as phase 3 draws them (_inputs, seed 9),
-    alpha 1, on the card: (the problem, its counts on the host).  Also
-    msweep_tpu_torch/time_fits.py --algo em_wide's, for a parent tree."""
+def _wide_problem(torch, E=WIDE_TIMED[0][0], G=WIDE_TIMED[0][1]):
+    """Phase 12's problems at G > 512 (WIDE_TIMED[0], BAND_TIMED[0]): logL
+    and counts at (E, G) in float64, drawn on the card as phase 3 draws
+    them (_inputs, seed 9), alpha 1, on the card: (the problem, its counts
+    on the host).  Also msweep_tpu_torch/time_fits.py --algo em_wide's and
+    em_band's, for a parent tree."""
     from msweep_tpu_torch.inference.mixture import bound_const
     from msweep_tpu_torch.inference.pack import DeviceProblem
     from msweep_tpu_torch.utils import PAD_THRESHOLD
 
-    E, G = WIDE_TIMED[0]
     L, counts = _inputs(torch, E, G, torch.float64, seed=9)[:2]
     host_counts = counts.cpu().numpy()
     p = DeviceProblem(shards=[(L, counts)], rows=[(0, E)],
@@ -1975,13 +2025,14 @@ def _em_bootstrap_wide(torch, counters):
     return k6, k5
 
 
-def _em_serial_wide(torch, p, counters):
-    """Phase 12's serial-EM leg on the G = 1,024 problem p: fit_em_result
-    in float64 (the emgpu default) for SERIAL_WIDE_ITERS iterations in
-    bench mode (chunks of 64), every pass K5's wide build and no other EM
-    pass; ms an iteration beside K5's ms a pass (CUDA events) and both
-    projected to the 5000-iteration cap; the objective beside the
-    parent's (PARENT "em_wide").  Returns K5's launches."""
+def _em_serial_wide(torch, p, counters, key="em_wide"):
+    """Phase 12's serial-EM leg on a problem p at G > 512 (_wide_problem):
+    fit_em_result in float64 (the emgpu default) for SERIAL_WIDE_ITERS
+    iterations in bench mode (chunks of 64), every pass the K5 build that
+    em_build names at G and no other EM pass; ms an iteration beside K5's
+    ms a pass (CUDA events) and both projected to the 5000-iteration cap;
+    the objective beside the parent's (PARENT[key]).  Returns K5's
+    launches."""
     from msweep_tpu_torch.inference import fit_em_result
     from msweep_tpu_torch.ops import em_kernels as KE
 
@@ -2005,13 +2056,15 @@ def _em_serial_wide(torch, p, counters):
     em_in = _em_inputs(torch, L, counts, 7)
     k5_ms = _time_ms(torch, lambda: KE.em_step_kernel(L, *em_in), 10)
     info = KE.kernel_info(KE.INSTANTIATIONS[L.dtype], G, torch.cuda.current_device())
+    if info["build"] != KE.em_build(G, L.element_size())[0]:
+        raise AssertionError(f"serial EM at G={G} ran K5's {info['build']} build")
     it_ms = fit_s * 1e3 / iters
     _say(f"  G={G} serial EM: E={E}, float64, {iters} iterations (fit_em_result, K5's "
          f"{info['build']} build): {fit_s:.3f} s, {it_ms:.4f} ms an iteration against K5 "
          f"{k5_ms:.4f} ms a pass ({it_ms - k5_ms:.4f} ms of host and small ops); projection to "
          f"the 5000-iteration cap, not measured: {it_ms * 5:.1f} s (K5 alone "
          f"{k5_ms * 5:.1f} s); launches {launches}")
-    _beside_parent("em_wide", r.n_iters, objective, f"serial EM at G={G}")
+    _beside_parent(key, r.n_iters, objective, f"serial EM at G={G}")
     del r, theta, em_in
     return k5
 
@@ -2074,6 +2127,9 @@ def main() -> int:
          "em_step_batch_wide"),
         # K5's wide build (G > 512), float64, timed and fitted (serial EM) there too.
         ("em_step_wide", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_wide"),
+        # K5's spread build (1,024 < G <= 2,048), float64, timed and fitted at
+        # 575,488 x 2,048.
+        ("em_step_band", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_band"),
         ("prof_read", "prof_sweeps.cu", "tools/prof_kernels.py:118", "prof_read"),
         ("prof_exp", "prof_sweeps.cu", "tools/prof_kernels.py:178", "prof_exp"),
         ("prof_exp2", "prof_sweeps.cu", "tools/prof_kernels.py:185", "prof_exp2"),

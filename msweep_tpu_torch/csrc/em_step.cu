@@ -48,10 +48,10 @@
 // + the chunk's sum in chunk order (rcg_common.cuh em_chunk_stats), w =
 // exp(t - m) * crow with crow = cnt / den, lse = m + log(den).  Every one
 // is a function of the chunks' maxima, their sums and the cells, so the
-// pair and owned builds take every chunk's max first and keep the bits:
-// where M_c is already the row's max m, the sum's exps are the weights'
-// exps, and a chunk takes its second exp only where a later chunk raises
-// the max.  Three builds, at two CTAs an SM each (so K5 and K6's wide
+// pair, spread and owned builds take every chunk's max first and keep the
+// bits: where M_c is already the row's max m, the sum's exps are the
+// weights' exps, and a chunk takes its second exp only where a later chunk
+// raises the max.  Four builds, at two CTAs an SM each (so K5 and K6's wide
 // build share 2 x SMs row ranges at G > 512, ops/em_kernels.py ranges),
 // chosen by G (em_plan; mirrored by ops/em_kernels.py em_build), each
 // timed against the others with msweep_tpu_torch/time_em_step.py (PERF.md
@@ -59,6 +59,17 @@
 // - pair (em_step_pair_kernel, G <= 2 CHUNK): the one-chunk build's layout
 //   with the row's two chunks in registers, 32 cells a lane, a warp a row:
 //   one read a cell, the weights through a tile in shared memory.
+// - spread (em_step_spread_kernel, 3 to SPREAD_MAX_CHUNKS chunks): a row
+//   over a group of NC warps, warp c its chunk c in registers (16 cells a
+//   lane, as the one-chunk build holds its row), a CTA of SPREAD_WARPS
+//   warps taking SPREAD_WARPS / NC rows at once; the chunk maxima meet in
+//   shared memory behind one named barrier of the group's warps a row,
+//   the chunk sums and exp(t - m) go to a tile in shared memory, one
+//   thread a row then replays the merge, and phase B adds the weights
+//   into column partials it keeps in registers across the range.  One
+//   read and one exp a cell (a second only before the chunk that holds
+//   the max), none for the 128-column groups of a ragged last chunk that
+//   lie wholly beyond G.
 // - owned (em_step_owned_kernel, OWNED_MIN_CHUNKS to WARPS chunks): the
 //   CTA takes one row at a time, warp c its chunk c in registers, each
 //   lane its own cells of the next rows copied ahead into its warp's ring
@@ -66,13 +77,13 @@
 //   lane keeps its 16 columns' partials in registers across the range
 //   (rows in order, written once).  Two barriers a row: after the chunks'
 //   maxima, and after their exp sums; every warp then replays the merge.
-// - direct (em_step_kernel<..., false>, the other widths): a warp a row;
-//   phase A merges a row's chunks into its max and exp sum; then, a slab
-//   of columns at a time (as many chunks as 8 rows of weights fit in the
-//   CTA's shared memory), each warp reads its row's chunks in the slab
-//   again and takes w with a second exp (em_chunk_w) into the slab's
-//   tile, and phase B adds the slab's columns in row order into the CTA's
-//   partials in device memory.  Two reads and two exps a cell.
+// - direct (em_step_kernel<..., false>, rows wider than WARPS chunks): a
+//   warp a row; phase A merges a row's chunks into its max and exp sum;
+//   then, a slab of columns at a time (as many chunks as 8 rows of weights
+//   fit in the CTA's shared memory), each warp reads its row's chunks in
+//   the slab again and takes w with a second exp (em_chunk_w) into the
+//   slab's tile, and phase B adds the slab's columns in row order into the
+//   CTA's partials in device memory.  Two reads and two exps a cell.
 // The weights, and the order of the adds into each column, depend on
 // neither the build nor its tile.
 // No atomics: the second stage sums the partials in CTA order, so a rerun
@@ -94,12 +105,23 @@ constexpr int EM_CTAS = ONE_CHUNK ? 3 : 2;
 constexpr int EM_WIDE_CTAS = EM_CTAS<false>;
 
 // The builds (em_plan), numbered as em_step_*_info reports them.
-enum EmBuild { EM_ONE_CHUNK = 0, EM_PAIR = 1, EM_OWNED = 2, EM_DIRECT = 3 };
+enum EmBuild { EM_ONE_CHUNK = 0, EM_PAIR = 1, EM_OWNED = 2, EM_DIRECT = 3, EM_SPREAD = 4 };
 // The owned build runs rows of OWNED_MIN_CHUNKS to WARPS chunks: with
 // fewer, most of its warps idle and the direct build was faster
 // (PERF.md section 6).  OWNED_STAGES: the most rows in flight.
 constexpr int OWNED_MIN_CHUNKS = 5;
 constexpr int OWNED_STAGES = 4;
+// The spread build runs rows of 3 to SPREAD_MAX_CHUNKS chunks, each over
+// a group of as many warps as it has chunks, as many rows at once as its
+// CTA of SPREAD_WARPS warps holds groups: 24 warps an SM at two CTAs, as
+// many as the one-chunk build's three CTAs hold, at 80 registers a thread
+// (PERF.md section 6: eight warps with the next row loaded ahead, at 128
+// registers, were slower in float64 at every width; sixteen spilled; the
+// tile's rows staged by cp.async were slower in both types).
+constexpr int SPREAD_MAX_CHUNKS = 4;
+constexpr int SPREAD_WARPS = 12;
+constexpr int SPREAD_THREADS = SPREAD_WARPS * 32;
+static_assert(SPREAD_WARPS % 3 == 0 && SPREAD_WARPS % 4 == 0, "every warp in a group");
 
 // ONE_CHUNK: G <= CHUNK, so the row functions are compiled for one chunk.
 // A tile is `tile` rows of `slab` columns of weights in shared memory: the
@@ -568,6 +590,192 @@ em_step_pair_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
   if (threadIdx.x == 0) part_scalar[blockIdx.x] = acc;
 }
 
+// The spread build's dynamic shared memory at G columns and `tile` rows:
+// logtheta (NC chunks, in the chunks' layout), the tile of exps, whose
+// rows are spread_stride(G) cells apart (16-byte aligned), then the
+// tile's row scalars: the chunk maxima, the exp sums at M_c and exp(M_{c-1}
+// - M_c) (SPREAD_MAX_CHUNKS each), cnt / den and the ddot term
+// (ops/em_kernels.py spread_bytes mirrors it).
+constexpr int SPREAD_ROW_SCALARS = 3 * SPREAD_MAX_CHUNKS + 2;
+__host__ __device__ inline int64_t spread_stride(int64_t G) { return (G + 3) / 4 * 4; }
+__host__ __device__ inline int64_t spread_bytes(int64_t G, int64_t size, int tile) {
+  return ((G + CHUNK - 1) / CHUNK * CHUNK + (int64_t)tile * (spread_stride(G) + SPREAD_ROW_SCALARS)) *
+         size;
+}
+// Rows of the spread build's tile: as many as fit in `budget`, at most
+// TILE_ROWS, a multiple of the groups (so a group's rows are every
+// groups-th of its range); 0 where one row a group does not fit.
+inline int spread_tile(int64_t G, int64_t size, int64_t budget) {
+  const int groups = SPREAD_WARPS / (int)((G + CHUNK - 1) / CHUNK);
+  const int64_t r = (budget - spread_bytes(G, size, 0)) / (spread_bytes(G, size, 1) -
+                                                          spread_bytes(G, size, 0));
+  const int t = r < TILE_ROWS ? (int)r : TILE_ROWS;
+  return t >= groups ? t - t % groups : 0;
+}
+
+// bar.sync on barrier `id` (1 to 15; 0 is __syncthreads's) for the
+// `threads` threads (whole warps) that name it.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// f(i) for the lane's slots i of a chunk whose first `groups` 128-column
+// groups hold a column below G (uniform across the warp): all 16 slots
+// in one unrolled run where the chunk is whole, only the live groups of a
+// ragged last chunk, whose other cells are -inf and are never used.
+template <typename F>
+__device__ __forceinline__ void live_slots(int groups, F f) {
+  if (groups >= NPL / 4) {
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) f(i);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NPL / 4; ++j)
+      if (j < groups) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) f(4 * j + k);
+      }
+  }
+}
+
+// The spread build (rows of 3 to SPREAD_MAX_CHUNKS chunks): group q of
+// the CTA's NG = warps / NC groups of NC warps takes rows lo + q, lo + q +
+// NG, ... of the range, warp c of the group the row's chunk c in
+// registers.  Per row, one barrier of the group's warps: t and the
+// chunk's max, the barrier, then the chunk's exps at M_c and their sum
+// (and exp(t - m) where M_c < m) and exp(t - m) into the tile.  Per tile,
+// one thread a row replays the merge in chunk order (lse, cnt / den, the
+// ddot term), then phase B, one thread a column, adds the tile's weights
+// exp(t - m) * cnt / den in row order into the column partials it keeps
+// in registers across the range, written once at the end.
+template <typename LT, typename CT>
+__global__ void __launch_bounds__(SPREAD_THREADS, EM_WIDE_CTAS)
+em_step_spread_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
+                      const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
+                      const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
+                      int64_t tq, int64_t tr, int tile, int64_t slab,
+                      CT* __restrict__ lse_out, double* __restrict__ part_scalar,
+                      double* __restrict__ part_cols) {
+  constexpr int NT = SPREAD_THREADS, MC = SPREAD_MAX_CHUNKS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = (int)((G + CHUNK - 1) / CHUNK), ng = SPREAD_WARPS / nc;
+  const int64_t stride = spread_stride(G);
+  CT* lt_sh = reinterpret_cast<CT*>(smem);
+  CT* wt = lt_sh + (int64_t)nc * CHUNK;  // (tile, stride) exps
+  CT* cmax_sh = wt + (int64_t)tile * stride;  // (tile, MC) each
+  CT* csum_sh = cmax_sh + tile * MC;
+  CT* step_sh = csum_sh + tile * MC;
+  CT* crow_sh = step_sh + tile * MC;  // (tile,) each
+  CT* rowres = crow_sh + tile;
+  int64_t lo, hi;
+  split_rows(blockIdx.x, E, tq, tr, lo, hi);
+  double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
+  if (done != nullptr && *done) {
+    for (int64_t g = threadIdx.x; g < G; g += NT) cols[g] = 0.0;
+    for (int64_t e = lo + threadIdx.x; e < hi; e += NT) lse_out[e] = 0;
+    if (threadIdx.x == 0) part_scalar[blockIdx.x] = 0.0;
+    return;
+  }
+  const int grp = warp / nc, c = warp - grp * nc;
+  const int64_t c0 = (int64_t)c * CHUNK;
+  const int groups = (int)((G - c0 + 127) / 128);  // live 128-column groups of the chunk
+  const int bar_id = 1 + grp, bar_threads = nc * 32;
+  if (grp == 0) {
+    CT lt[NPL];
+    load_cols(logtheta, c0, G, lane, lt);
+    store_chunk_shared(lt_sh + c0, lane, lt);
+  }
+  __syncthreads();
+  constexpr int NCOL = (MC * CHUNK + NT - 1) / NT;
+  double cacc[NCOL];
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) cacc[j] = 0.0;
+  double acc = 0.0;  // thread 0's
+  for (int64_t t0 = lo; t0 < hi; t0 += tile) {
+    const int nr = (int)((hi - t0 < tile) ? hi - t0 : tile);
+    for (int r = grp; r < nr; r += ng) {
+      const int64_t e = t0 + r;
+      // t and the chunk's max.
+      CT x[NPL];
+      {
+        LT L[NPL];
+        CT lt[NPL];
+        load_row_chunk(logL + e * G, c0, G, vec, lane, L);
+        load_chunk_shared(lt_sh + c0, CHUNK, lane, (CT)0, lt);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x[i] = (CT)L[i] + lt[i];
+      }
+      CT cm = x[0];
+#pragma unroll
+      for (int i = 1; i < NPL; ++i) cm = cmax(cm, x[i]);
+      cm = warp_max(cm);
+      if (lane == 0) cmax_sh[r * MC + c] = cm;
+      bar_sync(bar_id, bar_threads);
+      // The chunk's exps at M_c and their sum; exp(t - m) into the tile.
+      CT m = neg_inf<CT>(), Mc = 0, Mp = 0;
+      for (int j = 0; j < nc; ++j) {
+        if (j == c) Mp = m;
+        m = cmax(m, cmax_sh[r * MC + j]);
+        if (j == c) Mc = m;
+      }
+      CT cs = 0;
+      if (Mc == m) {
+        live_slots(groups, [&](int i) { x[i] = em_exp(x[i] - Mc); });
+        live_slots(groups, [&](int i) { cs += x[i]; });
+      } else {
+        live_slots(groups, [&](int i) { cs += em_exp(x[i] - Mc); });
+        live_slots(groups, [&](int i) { x[i] = em_exp(x[i] - m); });
+      }
+      cs = warp_sum(cs);
+      if (lane == 0) {
+        csum_sh[r * MC + c] = cs;
+        step_sh[r * MC + c] = c > 0 ? cexp(Mp - Mc) : (CT)0;
+      }
+      // Whole 4-cell groups: a tile row holds `stride` cells, the cells
+      // beyond G (exp(-inf) = 0) land in its padding.
+      store_row_chunk(wt + (int64_t)r * stride, c0, stride, lane, x);
+    }
+    __syncthreads();
+    // The merge in chunk order, one thread a row: lse, cnt / den, the ddot term.
+    if (threadIdx.x < nr) {
+      const int r = threadIdx.x;
+      const int64_t e = t0 + r;
+      CT mp = neg_inf<CT>(), den = 0;
+      for (int j = 0; j < nc; ++j) {
+        den = (mp == neg_inf<CT>()) ? csum_sh[r * MC + j]
+                                    : den * step_sh[r * MC + j] + csum_sh[r * MC + j];
+        mp = cmax(mp, cmax_sh[r * MC + j]);
+      }
+      const CT cnt = (CT)counts[e], lse = mp + clog(den);
+      crow_sh[r] = cnt / den;
+      lse_out[e] = lse;
+      rowres[r] = cnt * (lse - lse_prev[e]);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int r = 0; r < nr; ++r) acc += (double)rowres[r];
+    }
+    // Phase B: the tile's weights into the thread's columns, rows in order.
+    for (int r = 0; r < nr; ++r) {
+      const CT* w = wt + (int64_t)r * stride;
+      const CT crow = crow_sh[r];
+#pragma unroll
+      for (int j = 0; j < NCOL; ++j) {
+        const int64_t g = threadIdx.x + j * NT;
+        if (g < G) cacc[j] += (double)(w[g] * crow);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) {
+    const int64_t g = threadIdx.x + j * NT;
+    if (g < G) cols[g] = cacc[j];
+  }
+  if (threadIdx.x == 0) part_scalar[blockIdx.x] = acc;
+}
+
 // What G columns run: the build (EmBuild), its kernel, its tile (rows of
 // weights, or the owned build's rows in flight), its columns (the direct
 // build's slab, else G) and the dynamic shared memory, each tile sized to
@@ -576,6 +784,7 @@ em_step_pair_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
 struct EmPlan {
   int build = EM_ONE_CHUNK;
   const void* kernel = nullptr;
+  int threads = THREADS;
   int tile = 0;
   int64_t slab = 0;
   size_t smem = 0;
@@ -606,7 +815,8 @@ static cudaError_t em_plan_one(int64_t G, EmPlan& p) {
 }
 
 // G <= CHUNK: one chunk; else the pair build (G <= 2 CHUNK), else the
-// owned build where it takes G and two rows fit, else direct.
+// spread build (G <= SPREAD_MAX_CHUNKS CHUNK), else the owned build where
+// it takes G and two rows fit, else direct.
 template <typename LT, typename CT>
 static cudaError_t em_plan(int64_t G, EmPlan& p) {
   if (G <= CHUNK) return em_plan_one<LT, CT, true>(G, p);
@@ -620,6 +830,18 @@ static cudaError_t em_plan(int64_t G, EmPlan& p) {
     p.slab = G;
     p.tile = wtile_rows(budget, G * (int64_t)sizeof(CT));
     p.smem = (size_t)p.tile * G * sizeof(CT);
+    if (err == cudaSuccess && p.tile == 0) err = cudaErrorInvalidConfiguration;
+    return err;
+  }
+  if (G <= SPREAD_MAX_CHUNKS * CHUNK) {
+    static WtileBudget spread_cache;
+    p.build = EM_SPREAD;
+    p.kernel = (const void*)em_step_spread_kernel<LT, CT>;
+    p.threads = SPREAD_THREADS;
+    err = wtile_budget(p.kernel, EM_WIDE_CTAS, spread_cache, budget);
+    p.slab = G;
+    p.tile = spread_tile(G, (int64_t)sizeof(CT), budget);
+    p.smem = (size_t)spread_bytes(G, (int64_t)sizeof(CT), p.tile);
     if (err == cudaSuccess && p.tile == 0) err = cudaErrorInvalidConfiguration;
     return err;
   }
@@ -651,7 +873,8 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
   split_plan(E, n_cta, tq, tr);
   void* args[] = {&logL, &counts, &lse_prev, &logtheta, &done, &E, &G, &vec, &tq, &tr,
                   &plan.tile, &plan.slab, &lse_out, &part_scalar, &part_cols};
-  err = cudaLaunchKernel(plan.kernel, dim3((unsigned)n_cta), dim3(THREADS), args, plan.smem, s);
+  err = cudaLaunchKernel(plan.kernel, dim3((unsigned)n_cta), dim3(plan.threads), args, plan.smem,
+                         s);
   if (err != cudaSuccess) return (int)err;
   rcg_reduce_scalar<<<1, 32, 0, s>>>((const double*)part_scalar, n_cta, (double*)out_scalar);
   err = cudaGetLastError();
@@ -674,7 +897,8 @@ static int info_em_step(int64_t G, int* out) {
   int ctas = 0;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, plan.kernel);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, plan.kernel, THREADS, plan.smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, plan.kernel, plan.threads,
+                                                        plan.smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;

@@ -100,13 +100,17 @@ def read_info(entry: str, G: int, device_index: int, n: int) -> tuple[int, ...]:
 
 
 # K5's builds (csrc/em_step.cu EmBuild), by the number its *_info reports.
-EM_BUILDS = ("one_chunk", "pair", "owned", "direct")
+EM_BUILDS = ("one_chunk", "pair", "owned", "direct", "spread")
 # Ints that K5's *_info entry fills (em_step.cu info_em_step); the last is
 # the build's number.
 K5_INFO = ("registers", "spill_bytes", "tile_rows", "tile_cols", "ctas_per_sm", "build")
 # csrc/rcg_common.cuh and em_step.cu constants that the plan reads.
 CHUNK, WARPS, TILE_ROWS = 512, 8, 32
 OWNED_MIN_CHUNKS, OWNED_STAGES = 5, 4
+# The spread build: rows of at most SPREAD_MAX_CHUNKS chunks, its CTA's
+# warps, and the scalars it keeps a row of its tile.
+SPREAD_MAX_CHUNKS, SPREAD_WARPS = 4, 12
+SPREAD_ROW_SCALARS = 3 * SPREAD_MAX_CHUNKS + 2
 # An H100's shared memory (bytes): an SM's, the runtime's reserve a CTA,
 # and the most one CTA may opt in to.
 H100_SMEM = (233_472, 1_024, 232_448)
@@ -118,6 +122,13 @@ def owned_bytes(G: int, itemsize: int, stages: int) -> int:
     of its chunk, NC chunks each, and six (8,) arrays of chunk scalars."""
     chunk_bytes = -(-G // CHUNK) * CHUNK * itemsize
     return chunk_bytes + -(-6 * WARPS * itemsize // 16) * 16 + stages * chunk_bytes
+
+
+def spread_bytes(G: int, itemsize: int, tile: int) -> int:
+    """Dynamic shared memory of K5's spread build at G columns and `tile`
+    rows (em_step.cu spread_bytes): logtheta (NC chunks), the tile of
+    exps, its rows G rounded up to 4 cells apart, and its row scalars."""
+    return (-(-G // CHUNK) * CHUNK + tile * (-(-G // 4) * 4 + SPREAD_ROW_SCALARS)) * itemsize
 
 
 def _budget(ctas: int, static: int, smem: tuple[int, int, int]) -> int:
@@ -139,17 +150,24 @@ def em_build(G: int, itemsize: int, smem: tuple[int, int, int] = H100_SMEM) -> t
     (em_step.cu em_plan) on a card with `smem` = (shared memory an SM,
     reserve a CTA, opt-in maximum a CTA): rows of one chunk the one-chunk
     build (three CTAs an SM), 512 < G <= 1,024 the pair build, rows of
+    three and four chunks (1,024 < G <= 2,048) the spread build, rows of
     OWNED_MIN_CHUNKS to 8 chunks (2,048 < G <= 4,096) the owned build with
     as many rows in flight as fit (at most OWNED_STAGES, at least two),
-    every other width the direct build, whose rows are read from device
-    memory twice.  The tile is the rows of weights in shared memory, or
-    the owned build's rows in flight.  The one-chunk, pair and direct
-    builds hold 3, 1 and 3 arrays of 32 cells in static shared memory."""
+    every wider row the direct build, whose rows are read from device
+    memory twice.  The tile is the rows of weights in shared memory (the
+    spread build's a multiple of its groups of NC warps), or the owned
+    build's rows in flight.  The one-chunk, pair and direct builds hold 3, 1 and 3
+    arrays of 32 cells in static shared memory."""
     if G <= CHUNK:
         return "one_chunk", _wtile_rows(_budget(3, 3 * TILE_ROWS * itemsize, smem),
                                         max(G, 1) * itemsize)
     if G <= 2 * CHUNK:
         return "pair", _wtile_rows(_budget(2, TILE_ROWS * itemsize, smem), G * itemsize)
+    if G <= SPREAD_MAX_CHUNKS * CHUNK:
+        groups = SPREAD_WARPS // -(-G // CHUNK)
+        tile = min(TILE_ROWS, (_budget(2, 0, smem) - spread_bytes(G, itemsize, 0))
+                   // (spread_bytes(G, itemsize, 1) - spread_bytes(G, itemsize, 0)))
+        return "spread", (tile - tile % groups if tile >= groups else 0)
     if OWNED_MIN_CHUNKS <= -(-G // CHUNK) <= WARPS:
         budget = _budget(2, 0, smem)
         stages = next((n for n in range(OWNED_STAGES, 1, -1)

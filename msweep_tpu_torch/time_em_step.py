@@ -5,7 +5,12 @@ two versions of the kernel can be compared in one call:
     python3 msweep_tpu_torch/time_em_step.py --tree DIR [--shapes 2301952x512,...]
 
 DIR is the root of a checkout: its msweep_tpu_torch/ is imported and its
-kernels are built there.  The inputs are drawn on the card from --seed as
+kernels are built there.  The default shapes hold the same ~1.18e9 cells
+at 512 groups (the one-chunk build), 4,096 (the owned build) and 16,384
+(the direct build); the spread build's band (rows of three and four
+chunks) at the same cells is --shapes 575488x2048,766816x1537,1149856x1025
+(four whole chunks; four, the last one column; three, the last one
+column), and the direct build's wider rows 143872x8192,71936x16384.  The inputs are drawn on the card from --seed as
 chip_smoke.py phase 3 draws them (logL the log-softmax of normal logits
 times 2, counts in 1..39, ~20% of theta at 0, lse_prev near the row
 logsumexps), so the times compare with that phase's.  The first line is

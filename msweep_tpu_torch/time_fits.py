@@ -2,7 +2,7 @@
 the checkout given by --tree, so that two versions of the optimizer loops
 can be compared in one call:
 
-    python3 msweep_tpu_torch/time_fits.py --tree DIR [--algo rcg,em,em64,em_wide]
+    python3 msweep_tpu_torch/time_fits.py --tree DIR [--algo rcg,em,em64,em_wide,em_band]
 
 DIR is the root of a checkout: its msweep_tpu_torch/ is imported and its
 kernels are built there (before the clock starts).  rcg and em run on the
@@ -10,10 +10,12 @@ synthetic community of phase 5 (2,301,952 x 512, seed 1): rcg packed in
 float32 with the escalation tail (fit_result "rcgcpu", tol 1e-6), EM
 packed in float64 (fit_result "emgpu", tol 1e-6, its 5000-iteration cap);
 em64 is chip_smoke.py phase 11's 64 float64 EM iterations (tol -1) there.
-em_wide is chip_smoke.py phase 12's serial EM at 1,024 groups: the
-problem drawn by this checkout's chip_smoke.py (_wide_problem), whatever
-DIR is, and fit_em_result in float64 for its SERIAL_WIDE_ITERS iterations
-in chunks of 64 (PARENT["em_wide"] there is the parent tree's objective).
+em_wide and em_band are chip_smoke.py phase 12's serial EM at 1,150,976
+x 1,024 and 575,488 x 2,048 (WIDE_TIMED[0], BAND_TIMED[0]): the problem
+drawn by this checkout's chip_smoke.py (_wide_problem), whatever DIR is,
+and fit_em_result in float64 for its SERIAL_WIDE_ITERS iterations in
+chunks of 64 (PARENT["em_wide"] and PARENT["em_band"] there are the
+parent trees' objectives).
 The first line is the card's name and power limit (nvidia-smi); then one
 JSON object a line for each fit: its seconds (host clock, the fit alone,
 ended by reading its result), iterations, objective (repr, to the bit) and
@@ -34,7 +36,8 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--algo", default="rcg,em", help="comma-separated: rcg, em")
+    ap.add_argument("--algo", default="rcg,em",
+                    help="comma-separated: rcg, em, em64, em_wide, em_band")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path[0] = tree  # the tree's package, not this file's directory
@@ -55,9 +58,10 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     _build.load()
     algos = args.algo.split(",")
-    if "em_wide" in algos:
-        _em_wide(torch, args.tree, KE)
-    if not set(algos) - {"em_wide"}:
+    for algo in ("em_wide", "em_band"):
+        if algo in algos:
+            _em_wide(torch, args.tree, KE, algo)
+    if not set(algos) - {"em_wide", "em_band"}:
         return 0
     lik = make_community_likelihood(2_301_952, 512, seed=1, similarity=0.99, cluster_size=8,
                                     present_frac=0.06)
@@ -66,7 +70,7 @@ def main(argv=None) -> int:
             "em": (torch.float64, "emgpu", (KE.em_step_kernel,), to_tol),
             "em64": (torch.float64, "emgpu", (KE.em_step_kernel,), dict(tol=-1.0, max_iters=64))}
     for algo in algos:
-        if algo == "em_wide":
+        if algo in ("em_wide", "em_band"):
             continue
         dtype, name, counters, kw = runs[algo]
         p = pack_problem(lik, dtype=dtype, device=torch.device("cuda"))
@@ -85,10 +89,10 @@ def main(argv=None) -> int:
     return 0
 
 
-def _em_wide(torch, tree, KE):
-    """chip_smoke.py phase 12's serial EM at 1,024 groups with the tree's
-    package: one JSON line (seconds, ms an iteration, objective, K5's
-    launches)."""
+def _em_wide(torch, tree, KE, algo):
+    """chip_smoke.py phase 12's serial EM at 1,024 groups (em_wide) or
+    2,048 (em_band) with the tree's package: one JSON line (seconds, ms an
+    iteration, objective, K5's launches)."""
     import importlib.util
 
     from msweep_tpu_torch.inference import fit_em_result
@@ -98,7 +102,7 @@ def _em_wide(torch, tree, KE):
     spec = importlib.util.spec_from_file_location("chip_smoke_draw", here)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    p, _ = cs._wide_problem(torch)
+    p, _ = cs._wide_problem(torch, *(cs.WIDE_TIMED if algo == "em_wide" else cs.BAND_TIMED)[0])
     iters = cs.SERIAL_WIDE_ITERS
     KE.em_step_kernel.launches = 0
     torch.cuda.synchronize()
@@ -106,7 +110,7 @@ def _em_wide(torch, tree, KE):
     res = fit_em_result(p, tol=-1.0, max_iters=iters, chunk=64)
     n_iters, objective = int(res.n_iters), float(res.objective)
     fit_s = time.perf_counter() - t
-    print(json.dumps(dict(tree=tree, algo="em_wide", E=p.n_ecs, G=p.n_groups, fit_s=fit_s,
+    print(json.dumps(dict(tree=tree, algo=algo, E=p.n_ecs, G=p.n_groups, fit_s=fit_s,
                           ms_per_iter=fit_s * 1e3 / iters, iters=n_iters,
                           objective=repr(objective),
                           em_step_kernel=KE.em_step_kernel.launches)), flush=True)

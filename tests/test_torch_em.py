@@ -223,16 +223,25 @@ def test_cpu_tensors_take_the_plain_em_step():
 def test_em_build_by_width(itemsize):
     """K5's build by G at an H100's shared memory, G = 513 to 30,000: the
     pair build to 1,024 columns (a tile of weights for every warp), the
-    owned build for rows of five to eight chunks (2,049 to 4,096 columns)
-    with the most rows in flight (two to four) whose rings fit beside
-    logtheta, and the direct build with a tile of weights for every warp
-    at the other widths."""
+    spread build for rows of three and four chunks (1,025 to 2,048
+    columns) with the most rows, a multiple of its groups of NC warps,
+    that fit beside logtheta, the owned build for rows of five to eight chunks (2,049 to
+    4,096 columns) with the most rows in flight (two to four) whose rings
+    fit beside logtheta, and the direct build with a tile of weights for
+    every warp at the other widths."""
     budget = K._budget(2, 0, K.H100_SMEM)
-    for G in list(range(513, 4200, 7)) + [2048, 2049, 4096, 4097, 8192, 29_000, 30_000]:
+    for G in list(range(513, 4200, 7)) + [1536, 1537, 2048, 2049, 4096, 4097, 8192, 29_000,
+                                          30_000]:
         build, tile = K.em_build(G, itemsize)
         if G <= 1024:
             assert build == "pair" and tile >= K.WARPS, G
-        elif 2048 < G <= 4096:
+        elif G <= 2048:
+            groups = K.SPREAD_WARPS // -(-G // K.CHUNK)
+            assert build == "spread" and groups <= tile <= K.TILE_ROWS, G
+            assert tile % groups == 0 and K.spread_bytes(G, itemsize, tile) <= budget
+            assert (tile + groups > K.TILE_ROWS
+                    or K.spread_bytes(G, itemsize, tile + groups) > budget), G
+        elif G <= 4096:
             assert build == "owned" and 2 <= tile <= K.OWNED_STAGES, G
             assert K.owned_bytes(G, itemsize, tile) <= budget
             assert tile == K.OWNED_STAGES or K.owned_bytes(G, itemsize, tile + 1) > budget
@@ -242,7 +251,9 @@ def test_em_build_by_width(itemsize):
 
 @pytest.mark.parametrize("G,itemsize,want", [
     (512, 8, ("one_chunk", 16)), (513, 8, ("pair", 24)), (1024, 8, ("pair", 8)),
-    (1024, 4, ("pair", 24)), (1025, 8, ("direct", 8)), (2048, 4, ("direct", 8)),
+    (1024, 4, ("pair", 24)), (1025, 8, ("spread", 12)), (1025, 4, ("spread", 24)),
+    (1536, 8, ("spread", 8)), (1536, 4, ("spread", 16)), (1537, 8, ("spread", 6)),
+    (1537, 4, ("spread", 15)), (2048, 8, ("spread", 6)), (2048, 4, ("spread", 12)),
     (2049, 8, ("owned", 4)), (4096, 8, ("owned", 2)), (4096, 4, ("owned", 4)),
     (4097, 8, ("direct", 8)), (30_000, 4, ("direct", 8))])
 def test_em_build_pins(G, itemsize, want):
@@ -250,6 +261,17 @@ def test_em_build_pins(G, itemsize, want):
     test_cuda_em_kernel_matches_plain), as em_step.cu em_plan picks them
     on an H100 (chip_smoke.py phase 3 holds the runtime's to em_build)."""
     assert K.em_build(G, itemsize) == want
+
+
+@pytest.mark.parametrize("G,itemsize,cells", [(1025, 8, 1536), (2048, 4, 2048), (1537, 8, 2048)])
+def test_spread_bytes_layout(G, itemsize, cells):
+    """The spread build's shared memory (em_step.cu spread_bytes):
+    logtheta over whole chunks, then a row of the tile for each row, G
+    rounded up to 4 cells so that every row starts 16-byte aligned, and
+    its 14 row scalars after the tile."""
+    row = -(-G // 4) * 4 * itemsize
+    assert K.spread_bytes(G, itemsize, 0) == cells * itemsize and row % 16 == 0
+    assert K.spread_bytes(G, itemsize, 6) == cells * itemsize + 6 * (row + 14 * itemsize)
 
 
 def test_em_kernel_wrapper_validates_before_launch():
@@ -279,16 +301,19 @@ def cuda_device():
     (4099, 1152, False), (777, 5000, False),  # rows of several 512-column chunks
     (53, 1537, False),  # a ragged last chunk, scalar loads
     (9, 30_000, False),  # rows of many slabs
-    (3001, 1024, False), (3001, 1025, False),  # the pair build, and the direct one
-    (301, 2048, False), (301, 2049, False),  # the direct build, and the owned one
+    (3001, 1024, False), (3001, 1025, False),  # the pair build, and the spread one
+    (3001, 1536, False), (53, 1025, False),  # three whole chunks; a one-column tail
+    (301, 1537, False),  # four chunks, the last one column
+    (301, 2048, False), (301, 2049, False),  # the spread build, and the owned one
     (301, 4096, False), (301, 4097, False),  # the owned build, and the direct one
     (53, 2501, False),  # the owned build on a ragged last chunk, scalar loads
 ])
 @pytest.mark.parametrize("dtype", list(K.INSTANTIATIONS))
 def test_cuda_em_kernel_matches_plain(cuda_device, dtype, E, G, padded):
     """Each instantiation of K5 against its plain version on the card, on
-    rows of one chunk, of two (the pair build), of five to eight (the
-    owned build) and of several slabs of weights (the direct build), on
+    rows of one chunk, of two (the pair build), of three and four (the
+    spread build), of five to eight (the owned build) and of several slabs
+    of weights (the direct build), on
     each side of the bounds between builds (ops/em_kernels.py em_build); a
     rerun gives the same bits."""
     logL, counts, alpha, _ = _problem(E, G, 37)

@@ -70,7 +70,7 @@ def _fake_card(monkeypatch, k6_ctas=2):
     """The CUDA calls of the K5 and K6 wrappers faked on the CPU: an H100's
     132 SMs, the *_info entries of K5's builds (3 CTAs an SM for rows of
     one chunk, 2 for its wide builds: the fifth of six ints, the sixth the
-    build) and of K6's
+    build that em_build names) and of K6's
     (`k6_ctas`, the fourth of six; the sixth its chunk columns, 0 for rows
     of one chunk), and a library whose em_step and em_step_batch entries
     record the range count each launch takes (argument 7 of em_step's,
@@ -81,7 +81,9 @@ def _fake_card(monkeypatch, k6_ctas=2):
     def read_info(entry, G, index, n):
         wide = G > 512
         if entry == "em_step_f64_f64_info":
-            return (128, 0, 8, G, 2, 1) if wide else (80, 0, 32, 512, 3, 0)
+            build, tile = K.em_build(G, 8)
+            return (128, 0, tile, G, 2, K.EM_BUILDS.index(build)) if wide else \
+                (80, 0, 32, 512, 3, 0)
         assert entry == "em_step_batch_f64_f64_info" and n == 6
         return (128, 0, 10 if wide else 6, k6_ctas, 2, -(-G // 512) if wide else 0)
 

@@ -33,8 +33,9 @@ Phases (each raises on failure, and the script exits non-zero):
    columns, its bound and its build; at 575,488 x 2,048 and 1,149,856 x
    1,025, in both types, K5's spread build (rows of three and four
    chunks) against its plain version, its build as em_build predicts it,
-   its time, bound, share, registers, spills and CTAs an SM; then kernel
-   and plain times at
+   its time, bound, share, registers, spills and CTAs an SM; the same at
+   143,872 x 8,192 and 71,936 x 16,384 (K5's strided build, and at 16,384
+   in float64 its direct build); then kernel and plain times at
    2,301,952 x 512 (K3/K4/K6 at B = 8; K6 also beside 8 K5 passes over
    the same columns), each beside its bound (the larger of the bytes it
    must move at 3.35 TB/s and its operations at the data sheet's peak;
@@ -107,7 +108,8 @@ Phases (each raises on failure, and the script exits non-zero):
    (fit_em_result, float64, 128 iterations, every pass K5's wide build),
    ms an iteration beside K5's ms a pass, both projected to the
    5000-iteration cap, and the objective beside the parent's; then the
-   same serial leg at 575,488 x 2,048 groups on K5's spread build.
+   same serial leg at 575,488 x 2,048 groups on K5's spread build and at
+   143,872 x 8,192 on its strided build.
 
 Each path of 5-12 sets its kernels' launch counters to 0 just before it
 runs and reads them just after.
@@ -162,26 +164,33 @@ WIDE_EM_SHAPES = [(4_097, 1_024), (1_000, 1_537), (1_000, 2_501)]
 # the first for WIDE_FIT_ITERS iterations.
 WIDE_TIMED = [(1_150_976, 1_024), (287_744, 4_096)]
 WIDE_FIT_ITERS = 32
-SERIAL_WIDE_ITERS = 128  # phase 12's serial EM at 1,024 and 2,048 groups
+SERIAL_WIDE_ITERS = 128  # phase 12's serial EM at 1,024, 2,048 and 8,192 groups
 # K5's spread build (rows of three and four chunks) timed at the same
 # cells: four whole chunks, and three with a one-column tail.  Phase 12
 # fits the first serially for SERIAL_WIDE_ITERS iterations.
 BAND_TIMED = [(575_488, 2_048), (1_149_856, 1_025)]
+# K5 beyond 4,096 groups timed at the same cells: the strided build's last
+# width in float64 (16 chunks; phase 12 fits it serially for
+# SERIAL_WIDE_ITERS iterations) and 32 chunks, the strided build's in
+# float32 and the direct build's in float64.
+STRIDED_TIMED = [(143_872, 8_192), (71_936, 16_384)]
 SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 # What the parent tree's fits gave on the card (iterations, objective):
 # phase 5's and phase 11's rcg fit from chip_smoke.py at commit cd88794;
 # phase 6's EM fit at its cap, phase 11's 64 float64 EM iterations and
 # phase 12's serial EM at 1,024 groups from msweep_tpu_torch/time_fits.py
-# --algo em,em64,em_wide --tree at commit 6ddcd33, and at 2,048 groups
-# (--algo em_band) at commit 3db7750, whose K5 ran the direct build there
-# (the shared row ranges
+# --algo em,em64,em_wide --tree at commit 6ddcd33, at 2,048 groups
+# (--algo em_band) at commit 3db7750, whose K5 ran the direct build there,
+# and at 8,192 groups (--algo em_strided) at commit f291f4c, whose K5 ran
+# the direct build there too (the shared row ranges
 # of commit c986e96 moved the first two by an ulp from their cd88794
 # values).  The loops moved onto the device keep each scalar operation
 # and its order, and K5's wide builds its values and row ranges, so a run
 # gives these to the bit.
 PARENT = {"rcg": (499, -18682388.05370243), "em": (5000, -18677316.4564224),
           "em64": (64, -18704662.12176759), "em_wide": (SERIAL_WIDE_ITERS, -159560435.6141998),
-          "em_band": (SERIAL_WIDE_ITERS, -87619582.60160309)}
+          "em_band": (SERIAL_WIDE_ITERS, -87619582.60160309),
+          "em_strided": (SERIAL_WIDE_ITERS, -25850939.255114235)}
 DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a live pass
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
@@ -796,19 +805,20 @@ def _time_wide(torch, KE, KEB, exp_instr):
     return record
 
 
-def _time_band(torch, KE, exp_instr):
-    """K5's spread build at BAND_TIMED, in both types, as _time_k5 gives
-    it.  Returns the kernels record's entry for float64 at 2,048 groups,
-    the shape phase 12 fits: {"em_step_band": {...}}."""
+def _time_k5_at(torch, KE, exp_instr, shapes, name):
+    """K5 at `shapes`, in both types, as _time_k5 gives it: BAND_TIMED
+    (the spread build) or STRIDED_TIMED (beyond 4,096 groups).  Returns
+    the kernels record's entry `name` for float64 at the first shape, the
+    one phase 12 fits: {name: {...}}."""
     record = {}
-    for E, G in BAND_TIMED:
+    for E, G in shapes:
         for ld in KE.INSTANTIATIONS:
             L, counts = _inputs(torch, E, G, ld, seed=9)[:2]
             em_in = _em_inputs(torch, L, counts, 9)
-            wanted = (E, G, ld) == (*BAND_TIMED[0], torch.float64)
+            wanted = (E, G, ld) == (*shapes[0], torch.float64)
             entry = _time_k5(torch, KE, L, em_in, exp_instr, wanted)
             if wanted:
-                record["em_step_band"] = entry
+                record[name] = entry
             del L, counts, em_in
             torch.cuda.empty_cache()
     return record
@@ -885,7 +895,8 @@ def phase_kernels(torch, exp_instr, census):
                  "row ranges: max abs err " + ", ".join(line) + "; K6 replicates = K5 bits")
             del L, counts
     record = _time_wide(torch, KE, KEB, exp_instr)
-    record.update(_time_band(torch, KE, exp_instr))
+    record.update(_time_k5_at(torch, KE, exp_instr, BAND_TIMED, "em_step_band"))
+    record.update(_time_k5_at(torch, KE, exp_instr, STRIDED_TIMED, "em_step_strided"))
     E, G = E_FULL, G_FULL
     _say(f"  times at E={E} G={G} (CUDA events, cold L2: the matrix is larger than L2)")
     for (ld, cd), suffix in K.INSTANTIATIONS.items():
@@ -1941,22 +1952,24 @@ def phase_em_bootstrap(torch, lik):
     torch.cuda.empty_cache()
     launches["em_step_batch_wide"], launches["em_step_wide"] = _em_bootstrap_wide(torch,
                                                                                 counters)
-    p, _ = _wide_problem(torch, *BAND_TIMED[0])
-    launches["em_step_band"] = _em_serial_wide(torch, p, counters, "em_band")
-    del p
-    torch.cuda.empty_cache()
+    for key, shape in (("em_band", BAND_TIMED[0]), ("em_strided", STRIDED_TIMED[0])):
+        p, _ = _wide_problem(torch, *shape)
+        launches["em_step_" + key[3:]] = _em_serial_wide(torch, p, counters, key)
+        del p
+        torch.cuda.empty_cache()
     _say(f"  phase 12 {time.perf_counter() - t0:.1f} s")
     return {name: launches[name] for name in ("em_step_batch_kernel", "em_step_batch_f32",
                                               "em_step_batch_wide", "em_step_wide",
-                                              "em_step_band")}
+                                              "em_step_band", "em_step_strided")}
 
 
 def _wide_problem(torch, E=WIDE_TIMED[0][0], G=WIDE_TIMED[0][1]):
-    """Phase 12's problems at G > 512 (WIDE_TIMED[0], BAND_TIMED[0]): logL
-    and counts at (E, G) in float64, drawn on the card as phase 3 draws
-    them (_inputs, seed 9), alpha 1, on the card: (the problem, its counts
-    on the host).  Also msweep_tpu_torch/time_fits.py --algo em_wide's and
-    em_band's, for a parent tree."""
+    """Phase 12's problems at G > 512 (WIDE_TIMED[0], BAND_TIMED[0],
+    STRIDED_TIMED[0]): logL and counts at (E, G) in float64, drawn on the
+    card as phase 3 draws them (_inputs, seed 9), alpha 1, on the card:
+    (the problem, its counts on the host).  Also
+    msweep_tpu_torch/time_fits.py --algo em_wide's, em_band's and
+    em_strided's, for a parent tree."""
     from msweep_tpu_torch.inference.mixture import bound_const
     from msweep_tpu_torch.inference.pack import DeviceProblem
     from msweep_tpu_torch.utils import PAD_THRESHOLD
@@ -2130,6 +2143,9 @@ def main() -> int:
         # K5's spread build (1,024 < G <= 2,048), float64, timed and fitted at
         # 575,488 x 2,048.
         ("em_step_band", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_band"),
+        # K5's strided build (4,096 < G <= 8,192), float64, timed and fitted
+        # at 143,872 x 8,192.
+        ("em_step_strided", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_strided"),
         ("prof_read", "prof_sweeps.cu", "tools/prof_kernels.py:118", "prof_read"),
         ("prof_exp", "prof_sweeps.cu", "tools/prof_kernels.py:178", "prof_exp"),
         ("prof_exp2", "prof_sweeps.cu", "tools/prof_kernels.py:185", "prof_exp2"),

@@ -51,11 +51,12 @@
 // pair, spread and owned builds take every chunk's max first and keep the
 // bits: where M_c is already the row's max m, the sum's exps are the
 // weights' exps, and a chunk takes its second exp only where a later chunk
-// raises the max.  Four builds, at two CTAs an SM each (so K5 and K6's wide
-// build share 2 x SMs row ranges at G > 512, ops/em_kernels.py ranges),
-// chosen by G (em_plan; mirrored by ops/em_kernels.py em_build), each
-// timed against the others with msweep_tpu_torch/time_em_step.py (PERF.md
-// section 6):
+// raises the max.  Five builds, each at two CTAs an SM or (the strided
+// build's float32 rows of 19 to 32 chunks) one CTA of twice the warps, so
+// that K5 and K6's wide build share 2 x SMs row ranges at G > 512 in both
+// types (ops/em_kernels.py ranges), chosen by G and the type (em_plan;
+// mirrored by ops/em_kernels.py em_build), each timed against the others
+// with msweep_tpu_torch/time_em_step.py (PERF.md section 6):
 // - pair (em_step_pair_kernel, G <= 2 CHUNK): the one-chunk build's layout
 //   with the row's two chunks in registers, 32 cells a lane, a warp a row:
 //   one read a cell, the weights through a tile in shared memory.
@@ -77,8 +78,20 @@
 //   lane keeps its 16 columns' partials in registers across the range
 //   (rows in order, written once).  Two barriers a row: after the chunks'
 //   maxima, and after their exp sums; every warp then replays the merge.
-// - direct (em_step_kernel<..., false>, rows wider than WARPS chunks): a
-//   warp a row; phase A merges a row's chunks into its max and exp sum;
+// - strided (em_step_strided_kernel, WARPS + 1 to STRIDED_MAX_CHUNKS
+//   chunks, and in float32 STRIDED_WIDE_MIN_CHUNKS to twice that at one
+//   CTA an SM): the owned build's row a step with more chunks than warps:
+//   warp w of NW holds chunks w, w + NW, ... of the row in registers, the
+//   CTA's float64 column partials lie in shared memory, each lane's own
+//   slots (no atomics, rows in order), logtheta is read from L1 and the
+//   row through L2 (in float32 the CTA prefetches its next row there while
+//   it works on this one).  One read of each cell from device memory and
+//   one exp (a second only before the chunk that holds the max); two
+//   barriers a row.
+// - direct (em_step_kernel<..., false>, the other rows wider than WARPS
+//   chunks: float64 beyond STRIDED_MAX_CHUNKS, whose partials do not fit
+//   beside two CTAs, float32 of 17 and 18 chunks and beyond 32): a warp a
+//   row; phase A merges a row's chunks into its max and exp sum;
 //   then, a slab of columns at a time (as many chunks as 8 rows of weights
 //   fit in the CTA's shared memory), each warp reads its row's chunks in
 //   the slab again and takes w with a second exp (em_chunk_w) into the
@@ -105,7 +118,9 @@ constexpr int EM_CTAS = ONE_CHUNK ? 3 : 2;
 constexpr int EM_WIDE_CTAS = EM_CTAS<false>;
 
 // The builds (em_plan), numbered as em_step_*_info reports them.
-enum EmBuild { EM_ONE_CHUNK = 0, EM_PAIR = 1, EM_OWNED = 2, EM_DIRECT = 3, EM_SPREAD = 4 };
+enum EmBuild {
+  EM_ONE_CHUNK = 0, EM_PAIR = 1, EM_OWNED = 2, EM_DIRECT = 3, EM_SPREAD = 4, EM_STRIDED = 5
+};
 // The owned build runs rows of OWNED_MIN_CHUNKS to WARPS chunks: with
 // fewer, most of its warps idle and the direct build was faster
 // (PERF.md section 6).  OWNED_STAGES: the most rows in flight.
@@ -122,6 +137,24 @@ constexpr int SPREAD_MAX_CHUNKS = 4;
 constexpr int SPREAD_WARPS = 12;
 constexpr int SPREAD_THREADS = SPREAD_WARPS * 32;
 static_assert(SPREAD_WARPS % 3 == 0 && SPREAD_WARPS % 4 == 0, "every warp in a group");
+// The strided build takes rows of WARPS + 1 to STRIDED_MAX_CHUNKS chunks
+// (4,097 to 8,192 columns) at two CTAs an SM of STRIDED_WARPS_F32 /
+// STRIDED_WARPS_F64 warps, each holding STRIDED_MAX_CHUNKS / warps chunks;
+// and float32 rows of STRIDED_WIDE_MIN_CHUNKS to twice
+// STRIDED_MAX_CHUNKS chunks (9,217 to 16,384 columns) at one CTA an SM of
+// STRIDED_WIDE_WARPS warps, whose partials (up to 128 KB) do not fit
+// beside a second CTA (at 17 and 18 chunks, the last of one column and
+// loaded a cell at a time, where one or two warps hold two chunks to the
+// others' one, direct was faster: PERF.md section 6).
+constexpr int STRIDED_MAX_CHUNKS = 16;
+constexpr int STRIDED_WARPS_F32 = 8;
+constexpr int STRIDED_WARPS_F64 = 16;
+constexpr int STRIDED_WIDE_MIN_CHUNKS = 19;
+constexpr int STRIDED_WIDE_WARPS = 16;
+// CTAs an SM of the strided build whose CTA holds `chunks` chunks of a row.
+__host__ __device__ constexpr int strided_ctas(int chunks) {
+  return chunks <= STRIDED_MAX_CHUNKS ? 2 : 1;
+}
 
 // ONE_CHUNK: G <= CHUNK, so the row functions are compiled for one chunk.
 // A tile is `tile` rows of `slab` columns of weights in shared memory: the
@@ -776,6 +809,241 @@ em_step_spread_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts
   if (threadIdx.x == 0) part_scalar[blockIdx.x] = acc;
 }
 
+// The strided build's dynamic shared memory at G columns: the CTA's
+// float64 column partials, chunk c's at c CHUNK, the lane's slot i at i 32
+// + lane (a warp's read-modify-write of one slot covers 256 consecutive
+// bytes, no bank conflict), then three pairs of (NC,) chunk scalars (the
+// chunk maxima, the exp sums at M_c and exp(M_{c-1} - M_c)) by the parity
+// of the row (ops/em_kernels.py strided_bytes mirrors it).
+__host__ __device__ inline int64_t strided_bytes(int64_t G, int64_t size) {
+  const int64_t nc = (G + CHUNK - 1) / CHUNK;
+  return nc * CHUNK * (int64_t)sizeof(double) + align16(6 * nc * size);
+}
+
+// load_row_chunk with loads cached in L2 only (ld.global.cg), so that the
+// row does not evict logtheta from L1.
+__device__ __forceinline__ void load4_l2(const float* p, float* out) {
+  const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+  out[0] = q.x; out[1] = q.y; out[2] = q.z; out[3] = q.w;
+}
+__device__ __forceinline__ void load4_l2(const double* p, double* out) {
+  const double2 a = __ldcg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldcg(reinterpret_cast<const double2*>(p) + 1);
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+template <typename LT>
+__device__ __forceinline__ void load_row_chunk_l2(const LT* __restrict__ row, int64_t c0,
+                                                  int64_t G, bool vec, int lane, LT (&L)[NPL]) {
+#pragma unroll
+  for (int j = 0; j < NPL / 4; ++j) {
+    const int64_t g = c0 + 128 * j + 4 * lane;
+    if (vec && g < G) {
+      load4_l2(row + g, &L[4 * j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) L[4 * j + k] = (g + k < G) ? __ldcg(row + g + k) : neg_inf<LT>();
+    }
+  }
+}
+
+// load_cols in 16-byte loads where vec (G % 4 == 0 and x 16-byte aligned).
+template <typename CT>
+__device__ __forceinline__ void load_cols_vec(const CT* __restrict__ x, int64_t c0, int64_t G,
+                                              bool vec, int lane, CT (&out)[NPL]) {
+  if (!vec) {
+    load_cols(x, c0, G, lane, out);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < NPL / 4; ++j) {
+    const int64_t g = c0 + 128 * j + 4 * lane;
+    if (g < G) {
+      load4(x + g, &out[4 * j]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out[4 * j + k] = 0;
+    }
+  }
+}
+
+// Ask L2 for the `bytes` at p, one 128-byte line a thread at a time over
+// the `threads` threads of the CTA; nothing waits for it.
+__device__ __forceinline__ void prefetch_l2(const void* p, int64_t bytes, int threads) {
+  const char* b = static_cast<const char*>(p);
+  const char* line = b - ((uintptr_t)b & 127);
+  for (const char* q = line + (int64_t)threadIdx.x * 128; q < b + bytes;
+       q += (int64_t)threads * 128)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(q));
+}
+
+// The strided build (rows of more chunks than warps): the CTA takes its
+// rows one at a time, warp w of NW the row's chunks w + k NW (k < K) in
+// registers, lane l its 16 cells of each, so every cell of the row is
+// read once, through L2 (in float32 prefetched there while the CTA worked
+// on the row before).  Per row: t and each chunk's max, a barrier, every warp
+// takes the running maxima from the chunk maxima, then each chunk's exps
+// at M_c and their sum (and exp(t - m) where M_c < m) and exp(M_{c-1} -
+// M_c), a barrier, the merge in chunk order replayed by every warp, and w
+// = exp(t - m) * cnt / den added into the lane's own float64 partials in
+// shared memory, rows in order, written once at the end.
+template <typename LT, typename CT, int NW, int K>
+__global__ void __launch_bounds__(NW * 32, strided_ctas(NW * K))
+em_step_strided_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
+                       const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
+                       const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
+                       int64_t tq, int64_t tr, int tile, int64_t slab,
+                       CT* __restrict__ lse_out, double* __restrict__ part_scalar,
+                       double* __restrict__ part_cols) {
+  static_assert(sizeof(LT) == sizeof(CT), "the row is loaded in the compute type");
+  constexpr int NT = NW * 32;
+  // The next row is prefetched into L2 in float32 only: it gained 1-2%
+  // there and lost 2-6% in float64 (PERF.md section 6).
+  constexpr bool prefetch = sizeof(CT) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = (int)((G + CHUNK - 1) / CHUNK);
+  double* part = reinterpret_cast<double*>(smem);
+  CT* sc = reinterpret_cast<CT*>(smem + (int64_t)nc * CHUNK * sizeof(double));  // scalars
+  int64_t lo, hi;
+  split_rows(blockIdx.x, E, tq, tr, lo, hi);
+  double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
+  if (done != nullptr && *done) {
+    for (int64_t g = threadIdx.x; g < G; g += NT) cols[g] = 0.0;
+    for (int64_t e = lo + threadIdx.x; e < hi; e += NT) lse_out[e] = 0;
+    if (threadIdx.x == 0) part_scalar[blockIdx.x] = 0.0;
+    return;
+  }
+  const bool lt_vec = G % 4 == 0 && ((uintptr_t)logtheta % 16) == 0;
+  int ch[K];  // the warp's chunks (none in slot k where ch[k] >= nc)
+  bool live[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ch[k] = warp + k * NW;
+    live[k] = ch[k] < nc;
+    if (live[k]) {
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) part[ch[k] * CHUNK + i * 32 + lane] = 0.0;
+    }
+  }
+  double acc = 0.0;  // thread 0's
+  int par = 0;
+  for (int64_t e = lo; e < hi; ++e, par ^= 1) {
+    CT* cmax_sh = sc + par * nc;
+    CT* csum_sh = sc + (2 + par) * nc;
+    CT* step_sh = sc + (4 + par) * nc;
+    const LT* row = logL + e * G;
+    if (prefetch && e + 1 < hi) prefetch_l2(row + G, G * (int64_t)sizeof(LT), NT);
+    const CT cnt = (CT)counts[e];
+    const CT lp = threadIdx.x == 0 ? lse_prev[e] : (CT)0;
+    // t and each chunk's max.
+    CT x[K][NPL], cm[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (live[k]) load_row_chunk_l2(row, (int64_t)ch[k] * CHUNK, G, vec, lane, x[k]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      cm[k] = neg_inf<CT>();
+      if (live[k]) {
+        CT lt[NPL];
+        load_cols_vec(logtheta, (int64_t)ch[k] * CHUNK, G, lt_vec, lane, lt);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] + lt[i];
+        cm[k] = x[k][0];
+#pragma unroll
+        for (int i = 1; i < NPL; ++i) cm[k] = cmax(cm[k], x[k][i]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) cm[k] = cmax(cm[k], __shfl_xor_sync(0xffffffffu, cm[k], o));
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (live[k]) cmax_sh[ch[k]] = cm[k];
+    }
+    __syncthreads();
+    // The running maxima M_{c-1}, M_c of the warp's chunks and the row's m.
+    CT m = neg_inf<CT>(), Mp[K], Mc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) Mp[k] = Mc[k] = 0;
+    for (int j = 0; j < nc; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (j == ch[k]) Mp[k] = m;
+      m = cmax(m, cmax_sh[j]);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (j == ch[k]) Mc[k] = m;
+    }
+    // Each chunk's exps at M_c and their sum; exp(t - m) in x.
+    CT cs[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      cs[k] = 0;
+      if (!live[k]) continue;
+      if (Mc[k] == m) {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] - Mc[k];
+        row_exps(x[k]);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) cs[k] += x[k][i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) cs[k] += em_exp(x[k][i] - Mc[k]);
+#pragma unroll
+        for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] - m;
+        row_exps(x[k]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (live[k]) {
+          csum_sh[ch[k]] = cs[k];
+          step_sh[ch[k]] = ch[k] > 0 ? cexp(Mp[k] - Mc[k]) : (CT)0;
+        }
+    }
+    __syncthreads();
+    // The merge in chunk order (the running max from the maxima).
+    CT mp = neg_inf<CT>(), den = 0;
+    for (int j = 0; j < nc; ++j) {
+      den = (mp == neg_inf<CT>()) ? csum_sh[j] : den * step_sh[j] + csum_sh[j];
+      mp = cmax(mp, cmax_sh[j]);
+    }
+    const CT crow = cnt / den;
+    if (threadIdx.x == 0) {
+      const CT lse = mp + clog(den);
+      lse_out[e] = lse;
+      acc += (double)(cnt * (lse - lp));
+    }
+    // The weights into the lane's partials.
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (live[k]) {
+#pragma unroll
+        for (int i = 0; i < NPL; ++i)
+          part[ch[k] * CHUNK + i * 32 + lane] += (double)(x[k][i] * crow);
+      }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (live[k]) {
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int64_t g = slot_col((int64_t)ch[k] * CHUNK, i, lane);
+        if (g < G) cols[g] = part[ch[k] * CHUNK + i * 32 + lane];
+      }
+    }
+  if (threadIdx.x == 0) part_scalar[blockIdx.x] = acc;
+}
+
 // What G columns run: the build (EmBuild), its kernel, its tile (rows of
 // weights, or the owned build's rows in flight), its columns (the direct
 // build's slab, else G) and the dynamic shared memory, each tile sized to
@@ -814,12 +1082,50 @@ static cudaError_t em_plan_one(int64_t G, EmPlan& p) {
   return err;
 }
 
+// The strided build at NW warps of K chunks each, where its partials fit
+// in the budget of its CTAs an SM (not so: direct).  At two CTAs an SM it
+// asks for more than a third of the SM's shared memory (two thirds of
+// that budget), so that no third CTA fits: K5's CTAs an SM set the row
+// ranges it shares with K6 (ops/em_kernels.py ranges).
+template <typename LT, typename CT, int NW, int K>
+static cudaError_t em_plan_strided(int64_t G, EmPlan& p) {
+  static WtileBudget cache;
+  int64_t budget = 0;
+  const void* kernel = (const void*)em_step_strided_kernel<LT, CT, NW, K>;
+  const cudaError_t err = wtile_budget(kernel, strided_ctas(NW * K), cache, budget);
+  if (err != cudaSuccess) return err;
+  const int64_t need = strided_bytes(G, (int64_t)sizeof(CT));
+  if (need > budget) return em_plan_one<LT, CT, false>(G, p);
+  p.build = EM_STRIDED;
+  p.kernel = kernel;
+  p.threads = NW * 32;
+  p.tile = 1;
+  p.slab = G;
+  const int64_t least = strided_ctas(NW * K) == 2 ? budget * 2 / 3 + 16 : 0;
+  p.smem = (size_t)(need > least ? need : least);
+  return cudaSuccess;
+}
+
 // G <= CHUNK: one chunk; else the pair build (G <= 2 CHUNK), else the
 // spread build (G <= SPREAD_MAX_CHUNKS CHUNK), else the owned build where
-// it takes G and two rows fit, else direct.
+// it takes G and two rows fit, else the strided build (rows of more
+// chunks than warps, at most STRIDED_MAX_CHUNKS, or in float32
+// STRIDED_WIDE_MIN_CHUNKS to twice that), else direct.
 template <typename LT, typename CT>
 static cudaError_t em_plan(int64_t G, EmPlan& p) {
   if (G <= CHUNK) return em_plan_one<LT, CT, true>(G, p);
+  const int64_t nc = (G + CHUNK - 1) / CHUNK;
+  if (nc > WARPS) {
+    constexpr int NW = sizeof(CT) == 4 ? STRIDED_WARPS_F32 : STRIDED_WARPS_F64;
+    if (nc <= STRIDED_MAX_CHUNKS)
+      return em_plan_strided<LT, CT, NW, STRIDED_MAX_CHUNKS / NW>(G, p);
+    if constexpr (sizeof(CT) == 4) {
+      if (nc >= STRIDED_WIDE_MIN_CHUNKS && nc <= 2 * STRIDED_MAX_CHUNKS)
+        return em_plan_strided<LT, CT, STRIDED_WIDE_WARPS,
+                               2 * STRIDED_MAX_CHUNKS / STRIDED_WIDE_WARPS>(G, p);
+    }
+    return em_plan_one<LT, CT, false>(G, p);
+  }
   int64_t budget = 0;
   cudaError_t err = cudaSuccess;
   if (G <= 2 * CHUNK) {

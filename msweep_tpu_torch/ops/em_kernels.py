@@ -100,7 +100,7 @@ def read_info(entry: str, G: int, device_index: int, n: int) -> tuple[int, ...]:
 
 
 # K5's builds (csrc/em_step.cu EmBuild), by the number its *_info reports.
-EM_BUILDS = ("one_chunk", "pair", "owned", "direct", "spread")
+EM_BUILDS = ("one_chunk", "pair", "owned", "direct", "spread", "strided")
 # Ints that K5's *_info entry fills (em_step.cu info_em_step); the last is
 # the build's number.
 K5_INFO = ("registers", "spill_bytes", "tile_rows", "tile_cols", "ctas_per_sm", "build")
@@ -111,6 +111,10 @@ OWNED_MIN_CHUNKS, OWNED_STAGES = 5, 4
 # warps, and the scalars it keeps a row of its tile.
 SPREAD_MAX_CHUNKS, SPREAD_WARPS = 4, 12
 SPREAD_ROW_SCALARS = 3 * SPREAD_MAX_CHUNKS + 2
+# The strided build: rows of WARPS + 1 to STRIDED_MAX_CHUNKS chunks at two
+# CTAs an SM, and float32 rows of STRIDED_WIDE_MIN_CHUNKS to twice
+# STRIDED_MAX_CHUNKS chunks at one CTA an SM.
+STRIDED_MAX_CHUNKS, STRIDED_WIDE_MIN_CHUNKS = 16, 19
 # An H100's shared memory (bytes): an SM's, the runtime's reserve a CTA,
 # and the most one CTA may opt in to.
 H100_SMEM = (233_472, 1_024, 232_448)
@@ -129,6 +133,14 @@ def spread_bytes(G: int, itemsize: int, tile: int) -> int:
     rows (em_step.cu spread_bytes): logtheta (NC chunks), the tile of
     exps, its rows G rounded up to 4 cells apart, and its row scalars."""
     return (-(-G // CHUNK) * CHUNK + tile * (-(-G // 4) * 4 + SPREAD_ROW_SCALARS)) * itemsize
+
+
+def strided_bytes(G: int, itemsize: int) -> int:
+    """Dynamic shared memory that K5's strided build needs at G columns
+    (em_step.cu strided_bytes): the CTA's float64 column partials over
+    whole chunks, then six (NC,) arrays of chunk scalars."""
+    nc = -(-G // CHUNK)
+    return nc * CHUNK * 8 + -(-6 * nc * itemsize // 16) * 16
 
 
 def _budget(ctas: int, static: int, smem: tuple[int, int, int]) -> int:
@@ -153,11 +165,15 @@ def em_build(G: int, itemsize: int, smem: tuple[int, int, int] = H100_SMEM) -> t
     three and four chunks (1,024 < G <= 2,048) the spread build, rows of
     OWNED_MIN_CHUNKS to 8 chunks (2,048 < G <= 4,096) the owned build with
     as many rows in flight as fit (at most OWNED_STAGES, at least two),
-    every wider row the direct build, whose rows are read from device
-    memory twice.  The tile is the rows of weights in shared memory (the
-    spread build's a multiple of its groups of NC warps), or the owned
-    build's rows in flight.  The one-chunk, pair and direct builds hold 3, 1 and 3
-    arrays of 32 cells in static shared memory."""
+    rows of 9 to STRIDED_MAX_CHUNKS chunks (4,096 < G <= 8,192) the
+    strided build at two CTAs an SM, and in float32 rows of 19 to 32
+    chunks (9,216 < G <= 16,384) at one CTA an SM, each where its
+    partials fit; every other row the direct build, whose rows are read
+    from device memory twice.  The tile is the rows of weights in shared
+    memory (the spread build's a multiple of its groups of NC warps), the
+    owned build's rows in flight, or the strided build's one row at a
+    time.  The one-chunk, pair and direct builds hold 3, 1 and 3 arrays of
+    32 cells in static shared memory."""
     if G <= CHUNK:
         return "one_chunk", _wtile_rows(_budget(3, 3 * TILE_ROWS * itemsize, smem),
                                         max(G, 1) * itemsize)
@@ -168,23 +184,29 @@ def em_build(G: int, itemsize: int, smem: tuple[int, int, int] = H100_SMEM) -> t
         tile = min(TILE_ROWS, (_budget(2, 0, smem) - spread_bytes(G, itemsize, 0))
                    // (spread_bytes(G, itemsize, 1) - spread_bytes(G, itemsize, 0)))
         return "spread", (tile - tile % groups if tile >= groups else 0)
-    if OWNED_MIN_CHUNKS <= -(-G // CHUNK) <= WARPS:
+    nc = -(-G // CHUNK)
+    if WARPS < nc <= STRIDED_MAX_CHUNKS and strided_bytes(G, itemsize) <= _budget(2, 0, smem):
+        return "strided", 1
+    if (itemsize == 4 and STRIDED_WIDE_MIN_CHUNKS <= nc <= 2 * STRIDED_MAX_CHUNKS
+            and strided_bytes(G, itemsize) <= _budget(1, 0, smem)):
+        return "strided", 1
+    if OWNED_MIN_CHUNKS <= nc <= WARPS:
         budget = _budget(2, 0, smem)
         stages = next((n for n in range(OWNED_STAGES, 1, -1)
                        if owned_bytes(G, itemsize, n) <= budget), 0)
         if stages:
             return "owned", stages
     budget = _budget(2, 3 * TILE_ROWS * itemsize, smem)
-    slab = min(-(-G // CHUNK), budget // (WARPS * CHUNK * itemsize)) * CHUNK
+    slab = min(nc, budget // (WARPS * CHUNK * itemsize)) * CHUNK
     return "direct", _wtile_rows(budget, slab * itemsize)
 
 
 def kernel_info(suffix: str, G: int, device_index: int) -> dict:
     """K5's build and launch at G columns on a card (K5_INFO, from the
     runtime, em_step.cu info_em_step): registers and local (spilled) bytes
-    a thread, its tile (rows of weights, or the owned build's rows in
-    flight) and columns, CTAs resident an SM, and the build's name
-    (EM_BUILDS)."""
+    a thread, its tile (rows of weights, the owned build's rows in
+    flight, or the strided build's one row) and columns, CTAs resident an
+    SM, and the build's name (EM_BUILDS)."""
     info = dict(zip(K5_INFO, read_info(f"em_step_{suffix}_info", G, device_index, len(K5_INFO))))
     info["build"] = EM_BUILDS[info["build"]]
     if info["ctas_per_sm"] < 1:

@@ -10,7 +10,9 @@ at 512 groups (the one-chunk build), 4,096 (the owned build) and 16,384
 (the direct build); the spread build's band (rows of three and four
 chunks) at the same cells is --shapes 575488x2048,766816x1537,1149856x1025
 (four whole chunks; four, the last one column; three, the last one
-column), and the direct build's wider rows 143872x8192,71936x16384.  The inputs are drawn on the card from --seed as
+column), and the rows beyond 4,096 groups 143872x8192,71936x16384 (the
+strided build's last width in float64, and 32 chunks: the strided build
+in float32, the direct build in float64).  The inputs are drawn on the card from --seed as
 chip_smoke.py phase 3 draws them (logL the log-softmax of normal logits
 times 2, counts in 1..39, ~20% of theta at 0, lse_prev near the row
 logsumexps), so the times compare with that phase's.  The first line is

@@ -2,7 +2,7 @@
 the checkout given by --tree, so that two versions of the optimizer loops
 can be compared in one call:
 
-    python3 msweep_tpu_torch/time_fits.py --tree DIR [--algo rcg,em,em64,em_wide,em_band]
+    python3 msweep_tpu_torch/time_fits.py --tree DIR [--algo rcg,em,em64,em_wide,em_band,em_strided]
 
 DIR is the root of a checkout: its msweep_tpu_torch/ is imported and its
 kernels are built there (before the clock starts).  rcg and em run on the
@@ -10,12 +10,13 @@ synthetic community of phase 5 (2,301,952 x 512, seed 1): rcg packed in
 float32 with the escalation tail (fit_result "rcgcpu", tol 1e-6), EM
 packed in float64 (fit_result "emgpu", tol 1e-6, its 5000-iteration cap);
 em64 is chip_smoke.py phase 11's 64 float64 EM iterations (tol -1) there.
-em_wide and em_band are chip_smoke.py phase 12's serial EM at 1,150,976
-x 1,024 and 575,488 x 2,048 (WIDE_TIMED[0], BAND_TIMED[0]): the problem
-drawn by this checkout's chip_smoke.py (_wide_problem), whatever DIR is,
-and fit_em_result in float64 for its SERIAL_WIDE_ITERS iterations in
-chunks of 64 (PARENT["em_wide"] and PARENT["em_band"] there are the
-parent trees' objectives).
+em_wide, em_band and em_strided are chip_smoke.py phase 12's serial EM at
+1,150,976 x 1,024, 575,488 x 2,048 and 143,872 x 8,192 (WIDE_TIMED[0],
+BAND_TIMED[0], STRIDED_TIMED[0]; K5's pair, spread and strided builds):
+the problem drawn by this checkout's chip_smoke.py (_wide_problem),
+whatever DIR is, and fit_em_result in float64 for its SERIAL_WIDE_ITERS
+iterations in chunks of 64 (PARENT["em_wide"], PARENT["em_band"] and
+PARENT["em_strided"] there are the parent trees' objectives).
 The first line is the card's name and power limit (nvidia-smi); then one
 JSON object a line for each fit: its seconds (host clock, the fit alone,
 ended by reading its result), iterations, objective (repr, to the bit) and
@@ -32,12 +33,17 @@ import subprocess
 import sys
 import time
 
+# The serial-EM legs at G > 512, by the chip_smoke.py list whose first
+# shape each fits.
+SERIAL_WIDE = {"em_wide": "WIDE_TIMED", "em_band": "BAND_TIMED", "em_strided": "STRIDED_TIMED"}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--algo", default="rcg,em",
-                    help="comma-separated: rcg, em, em64, em_wide, em_band")
+                    help="comma-separated: rcg, em, em64, em_wide (serial EM at 1,024 "
+                         "groups), em_band (2,048), em_strided (8,192)")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path[0] = tree  # the tree's package, not this file's directory
@@ -58,10 +64,10 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     _build.load()
     algos = args.algo.split(",")
-    for algo in ("em_wide", "em_band"):
+    for algo in SERIAL_WIDE:
         if algo in algos:
             _em_wide(torch, args.tree, KE, algo)
-    if not set(algos) - {"em_wide", "em_band"}:
+    if not set(algos) - set(SERIAL_WIDE):
         return 0
     lik = make_community_likelihood(2_301_952, 512, seed=1, similarity=0.99, cluster_size=8,
                                     present_frac=0.06)
@@ -70,7 +76,7 @@ def main(argv=None) -> int:
             "em": (torch.float64, "emgpu", (KE.em_step_kernel,), to_tol),
             "em64": (torch.float64, "emgpu", (KE.em_step_kernel,), dict(tol=-1.0, max_iters=64))}
     for algo in algos:
-        if algo in ("em_wide", "em_band"):
+        if algo in SERIAL_WIDE:
             continue
         dtype, name, counters, kw = runs[algo]
         p = pack_problem(lik, dtype=dtype, device=torch.device("cuda"))
@@ -90,9 +96,9 @@ def main(argv=None) -> int:
 
 
 def _em_wide(torch, tree, KE, algo):
-    """chip_smoke.py phase 12's serial EM at 1,024 groups (em_wide) or
-    2,048 (em_band) with the tree's package: one JSON line (seconds, ms an
-    iteration, objective, K5's launches)."""
+    """chip_smoke.py phase 12's serial EM at 1,024 groups (em_wide), 2,048
+    (em_band) or 8,192 (em_strided) with the tree's package: one JSON line
+    (seconds, ms an iteration, objective, K5's launches)."""
     import importlib.util
 
     from msweep_tpu_torch.inference import fit_em_result
@@ -102,7 +108,7 @@ def _em_wide(torch, tree, KE, algo):
     spec = importlib.util.spec_from_file_location("chip_smoke_draw", here)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    p, _ = cs._wide_problem(torch, *(cs.WIDE_TIMED if algo == "em_wide" else cs.BAND_TIMED)[0])
+    p, _ = cs._wide_problem(torch, *getattr(cs, SERIAL_WIDE[algo])[0])
     iters = cs.SERIAL_WIDE_ITERS
     KE.em_step_kernel.launches = 0
     torch.cuda.synchronize()

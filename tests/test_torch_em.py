@@ -227,10 +227,14 @@ def test_em_build_by_width(itemsize):
     columns) with the most rows, a multiple of its groups of NC warps,
     that fit beside logtheta, the owned build for rows of five to eight chunks (2,049 to
     4,096 columns) with the most rows in flight (two to four) whose rings
-    fit beside logtheta, and the direct build with a tile of weights for
-    every warp at the other widths."""
+    fit beside logtheta, the strided build (one row at a time) for rows
+    of nine to sixteen chunks (4,097 to 8,192 columns) with its partials
+    within two CTAs' share, and in float32 for rows of 19 to 32 chunks
+    (9,217 to 16,384 columns, twice the warps) within one CTA's, and the direct build with a tile
+    of weights for every warp at the other widths."""
     budget = K._budget(2, 0, K.H100_SMEM)
-    for G in list(range(513, 4200, 7)) + [1536, 1537, 2048, 2049, 4096, 4097, 8192, 29_000,
+    for G in list(range(513, 4200, 7)) + [1536, 1537, 2048, 2049, 4096, 4097, 8192, 8193,
+                                          8705, 9216, 9217, 12_000, 16_384, 16_385, 29_000,
                                           30_000]:
         build, tile = K.em_build(G, itemsize)
         if G <= 1024:
@@ -245,6 +249,11 @@ def test_em_build_by_width(itemsize):
             assert build == "owned" and 2 <= tile <= K.OWNED_STAGES, G
             assert K.owned_bytes(G, itemsize, tile) <= budget
             assert tile == K.OWNED_STAGES or K.owned_bytes(G, itemsize, tile + 1) > budget
+        elif G <= 8192:
+            assert (build, tile) == ("strided", 1) and K.strided_bytes(G, itemsize) <= budget, G
+        elif 9216 < G <= 16_384 and itemsize == 4:
+            assert (build, tile) == ("strided", 1), G
+            assert K.strided_bytes(G, itemsize) <= K._budget(1, 0, K.H100_SMEM)
         else:
             assert build == "direct" and tile >= K.WARPS, G
 
@@ -255,7 +264,11 @@ def test_em_build_by_width(itemsize):
     (1536, 8, ("spread", 8)), (1536, 4, ("spread", 16)), (1537, 8, ("spread", 6)),
     (1537, 4, ("spread", 15)), (2048, 8, ("spread", 6)), (2048, 4, ("spread", 12)),
     (2049, 8, ("owned", 4)), (4096, 8, ("owned", 2)), (4096, 4, ("owned", 4)),
-    (4097, 8, ("direct", 8)), (30_000, 4, ("direct", 8))])
+    (4097, 8, ("strided", 1)), (4097, 4, ("strided", 1)), (8192, 8, ("strided", 1)),
+    (8192, 4, ("strided", 1)), (8193, 8, ("direct", 8)), (8193, 4, ("direct", 8)),
+    (9216, 4, ("direct", 8)), (9217, 4, ("strided", 1)), (16_384, 8, ("direct", 8)),
+    (16_384, 4, ("strided", 1)), (16_385, 4, ("direct", 8)),
+    (30_000, 4, ("direct", 8))])
 def test_em_build_pins(G, itemsize, want):
     """The builds and tiles at the widths the card's checks run (phase 3,
     test_cuda_em_kernel_matches_plain), as em_step.cu em_plan picks them
@@ -272,6 +285,20 @@ def test_spread_bytes_layout(G, itemsize, cells):
     row = -(-G // 4) * 4 * itemsize
     assert K.spread_bytes(G, itemsize, 0) == cells * itemsize and row % 16 == 0
     assert K.spread_bytes(G, itemsize, 6) == cells * itemsize + 6 * (row + 14 * itemsize)
+
+
+@pytest.mark.parametrize("G,itemsize,nbytes", [(4097, 8, 36_864 + 432), (8192, 8, 65_536 + 768),
+                                               (8192, 4, 65_536 + 384),
+                                               (16_384, 4, 131_072 + 768)])
+def test_strided_bytes_layout(G, itemsize, nbytes):
+    """The strided build's shared memory (em_step.cu strided_bytes): a
+    float64 partial for every column of its whole chunks, 4 KB a chunk in
+    both types, then six arrays of NC chunk scalars, rounded up to 16
+    bytes.  Rows of 8,192 columns fit two CTAs' share of an H100 in both
+    types; float32 rows of 16,384 only one CTA's."""
+    assert K.strided_bytes(G, itemsize) == nbytes
+    fits_two = nbytes <= K._budget(2, 0, K.H100_SMEM)
+    assert fits_two == (G <= 8192) and nbytes <= K._budget(1, 0, K.H100_SMEM)
 
 
 def test_em_kernel_wrapper_validates_before_launch():
@@ -305,15 +332,19 @@ def cuda_device():
     (3001, 1536, False), (53, 1025, False),  # three whole chunks; a one-column tail
     (301, 1537, False),  # four chunks, the last one column
     (301, 2048, False), (301, 2049, False),  # the spread build, and the owned one
-    (301, 4096, False), (301, 4097, False),  # the owned build, and the direct one
+    (301, 4096, False), (301, 4097, False),  # the owned build, and the strided one
     (53, 2501, False),  # the owned build on a ragged last chunk, scalar loads
+    (301, 8192, False), (53, 8193, False),  # the strided build's last width (float64), one past
+    (53, 9217, False),  # its first in float32 at one CTA an SM, scalar loads
+    (37, 16_384, False), (37, 16_385, False),  # its last in float32, and direct beyond
 ])
 @pytest.mark.parametrize("dtype", list(K.INSTANTIATIONS))
 def test_cuda_em_kernel_matches_plain(cuda_device, dtype, E, G, padded):
     """Each instantiation of K5 against its plain version on the card, on
     rows of one chunk, of two (the pair build), of three and four (the
-    spread build), of five to eight (the owned build) and of several slabs
-    of weights (the direct build), on
+    spread build), of five to eight (the owned build), of nine to sixteen
+    (the strided build; to 32 in float32) and of several slabs of weights
+    (the direct build), on
     each side of the bounds between builds (ops/em_kernels.py em_build); a
     rerun gives the same bits."""
     logL, counts, alpha, _ = _problem(E, G, 37)

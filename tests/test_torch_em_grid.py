@@ -138,7 +138,8 @@ def test_k5_and_k6_take_the_same_ranges(monkeypatch):
     pytest.param(2, 792, 4, id="2-792"), pytest.param(3, 396, 4, id="3-396"),
     pytest.param(1, 396, 4, id="1-396"), pytest.param(4, 1584, 4, id="4-1584"),
     pytest.param(2, 264, 1024, id="G1024-2-264"), pytest.param(1, 264, 1024, id="G1024-1-264"),
-    pytest.param(3, 792, 1537, id="G1537-3-792"), pytest.param(4, 528, 4096, id="G4096-4-528")])
+    pytest.param(3, 792, 1537, id="G1537-3-792"), pytest.param(4, 528, 4096, id="G4096-4-528"),
+    pytest.param(1, 264, 8192, id="G8192-1-264"), pytest.param(1, 264, 16_384, id="G16384-1-264")])
 def test_k5_ranges_follow_k6_build(monkeypatch, k6_ctas, n, G):
     """K5's numerics follow K6's build: K5's range count is lcm(K5's CTAs
     an SM, K6's) x 132, 3 for K5's one-chunk build and 2 for its wide builds

@@ -34,8 +34,12 @@ Phases (each raises on failure, and the script exits non-zero):
    1,025, in both types, K5's spread build (rows of three and four
    chunks) against its plain version, its build as em_build predicts it,
    its time, bound, share, registers, spills and CTAs an SM; the same at
-   143,872 x 8,192 and 71,936 x 16,384 (K5's strided build, and at 16,384
-   in float64 its direct build); then kernel and plain times at
+   143,872 x 8,192 and 71,936 x 16,384 (K5's strided build; at 16,384 in
+   float64 its walking layout, one CTA an SM walking two row ranges), and
+   at 95,914 x 12,288 and 143,856 x 8,193 (the walking layout in float64
+   at 12,288 and float32 at 8,193; direct in float64 at 8,193), with
+   ranges a CTA beside the build as em_build and ranges_per_cta predict
+   them; then kernel and plain times at
    2,301,952 x 512 (K3/K4/K6 at B = 8; K6 also beside 8 K5 passes over
    the same columns), each beside its bound (the larger of the bytes it
    must move at 3.35 TB/s and its operations at the data sheet's peak;
@@ -108,8 +112,9 @@ Phases (each raises on failure, and the script exits non-zero):
    (fit_em_result, float64, 128 iterations, every pass K5's wide build),
    ms an iteration beside K5's ms a pass, both projected to the
    5000-iteration cap, and the objective beside the parent's; then the
-   same serial leg at 575,488 x 2,048 groups on K5's spread build and at
-   143,872 x 8,192 on its strided build.
+   same serial leg at 575,488 x 2,048 groups on K5's spread build, at
+   143,872 x 8,192 on its strided build and at 71,936 x 16,384 and 95,914
+   x 12,288 on that build's walking layout.
 
 Each path of 5-12 sets its kernels' launch counters to 0 just before it
 runs and reads them just after.
@@ -164,16 +169,20 @@ WIDE_EM_SHAPES = [(4_097, 1_024), (1_000, 1_537), (1_000, 2_501)]
 # the first for WIDE_FIT_ITERS iterations.
 WIDE_TIMED = [(1_150_976, 1_024), (287_744, 4_096)]
 WIDE_FIT_ITERS = 32
-SERIAL_WIDE_ITERS = 128  # phase 12's serial EM at 1,024, 2,048 and 8,192 groups
+SERIAL_WIDE_ITERS = 128  # phase 12's serial EM at 1,024 to 16,384 groups
 # K5's spread build (rows of three and four chunks) timed at the same
 # cells: four whole chunks, and three with a one-column tail.  Phase 12
 # fits the first serially for SERIAL_WIDE_ITERS iterations.
 BAND_TIMED = [(575_488, 2_048), (1_149_856, 1_025)]
 # K5 beyond 4,096 groups timed at the same cells: the strided build's last
-# width in float64 (16 chunks; phase 12 fits it serially for
-# SERIAL_WIDE_ITERS iterations) and 32 chunks, the strided build's in
-# float32 and the direct build's in float64.
+# width at two CTAs an SM (16 chunks) and 32 chunks, its last at one CTA
+# an SM, on the walking layout at a warp two chunks in float64; then the
+# walking layout's last width at a warp a chunk in float64 (24 chunks),
+# and 17 chunks, the last of one column, its first in float32 and direct
+# in float64.  Phase 12 fits each first shape, and 32 chunks, serially in
+# float64 for SERIAL_WIDE_ITERS iterations.
 STRIDED_TIMED = [(143_872, 8_192), (71_936, 16_384)]
+WALK_TIMED = [(95_914, 12_288), (143_856, 8_193)]
 SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 # What the parent tree's fits gave on the card (iterations, objective):
 # phase 5's and phase 11's rcg fit from chip_smoke.py at commit cd88794;
@@ -182,7 +191,9 @@ SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 # --algo em,em64,em_wide --tree at commit 6ddcd33, at 2,048 groups
 # (--algo em_band) at commit 3db7750, whose K5 ran the direct build there,
 # and at 8,192 groups (--algo em_strided) at commit f291f4c, whose K5 ran
-# the direct build there too (the shared row ranges
+# the direct build there too, and at 16,384 and 12,288 groups (--algo
+# em_strided_wide,em_strided_mid) at commit 13943e0, whose K5 ran the
+# direct build there in float64 (the shared row ranges
 # of commit c986e96 moved the first two by an ulp from their cd88794
 # values).  The loops moved onto the device keep each scalar operation
 # and its order, and K5's wide builds its values and row ranges, so a run
@@ -190,7 +201,9 @@ SWEEPS = ("prof_read", "prof_exp", "prof_exp2")  # T1-T3
 PARENT = {"rcg": (499, -18682388.05370243), "em": (5000, -18677316.4564224),
           "em64": (64, -18704662.12176759), "em_wide": (SERIAL_WIDE_ITERS, -159560435.6141998),
           "em_band": (SERIAL_WIDE_ITERS, -87619582.60160309),
-          "em_strided": (SERIAL_WIDE_ITERS, -25850939.255114235)}
+          "em_strided": (SERIAL_WIDE_ITERS, -25850939.255114235),
+          "em_strided_wide": (SERIAL_WIDE_ITERS, -13896731.281964546),
+          "em_strided_mid": (SERIAL_WIDE_ITERS, -17990731.401290603)}
 DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a live pass
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
@@ -731,10 +744,11 @@ def _k6_issue(torch, KEB, E, G, B, lsize, csize, census, suffix):
 
 def _time_k5(torch, KE, L, em_in, exp_instr, record=False):
     """K5 on L (E, G) at G > 512: against its plain version (_check_em),
-    its build as ops/em_kernels.py em_build predicts it at this card's
-    shared memory, its ms a pass (CUDA events), bound and share of it,
-    registers, spills, tile, CTAs an SM and row ranges.  Returns, with
-    `record`, its kernels-record entry (else None)."""
+    its build and the row ranges a CTA walks as ops/em_kernels.py
+    em_build and ranges_per_cta predict them at this card's shared memory,
+    its ms a pass (CUDA events), bound and share of it, registers, spills,
+    tile, CTAs an SM and row ranges.  Returns, with `record`, its
+    kernels-record entry (else None)."""
     E, G = L.shape
     suffix = KE.INSTANTIATIONS[L.dtype]
     dev = torch.cuda.current_device()
@@ -743,14 +757,17 @@ def _time_k5(torch, KE, L, em_in, exp_instr, record=False):
     bms, by = bound_ms("em_step", E, G, L.element_size(), L.element_size(), exp_instr)
     info = KE.kernel_info(suffix, G, dev)
     want = KE.em_build(G, L.element_size())
+    walk = KE.ranges_per_cta(G, L.element_size())
     _say(f"  em_step {suffix} at E={E} G={G}: {ms:.4f} ms, bound {bms:.4f} ms ({by}), share of "
          f"bound {bms / ms:.3f}; {info['build']} build, {info['registers']} registers, "
          f"{info['spill_bytes']} local (spilled) bytes a thread, tile of {info['tile_rows']} "
-         f"rows, {info['ctas_per_sm']} CTAs an SM, {KE.ranges(suffix, E, G, L.device)} row "
-         f"ranges (em_build at an H100's shared memory: {want}); max abs err {err:.3e}")
+         f"rows, {info['ctas_per_sm']} CTAs an SM, {info['ranges_per_cta']} row ranges a CTA, "
+         f"{KE.ranges(suffix, E, G, L.device)} row ranges (em_build at an H100's shared memory: "
+         f"{want}, {walk} ranges a CTA); max abs err {err:.3e}")
     if ("H100" in torch.cuda.get_device_properties(dev).name
-            and (info["build"], info["tile_rows"]) != want):
-        raise AssertionError(f"K5 runs {info} at G={G}, em_build says {want}")
+            and ((info["build"], info["tile_rows"]) != want or info["ranges_per_cta"] != walk)):
+        raise AssertionError(f"K5 runs {info} at G={G}, em_build says {want}, ranges_per_cta "
+                             f"{walk}")
     if not record:
         return None
     plain_ms = _time_ms(torch, lambda: KE.em_step_plain(L, *em_in), 1)
@@ -805,17 +822,17 @@ def _time_wide(torch, KE, KEB, exp_instr):
     return record
 
 
-def _time_k5_at(torch, KE, exp_instr, shapes, name):
+def _time_k5_at(torch, KE, exp_instr, shapes, names=()):
     """K5 at `shapes`, in both types, as _time_k5 gives it: BAND_TIMED
-    (the spread build) or STRIDED_TIMED (beyond 4,096 groups).  Returns
-    the kernels record's entry `name` for float64 at the first shape, the
-    one phase 12 fits: {name: {...}}."""
+    (the spread build), STRIDED_TIMED or WALK_TIMED (beyond 4,096 groups).
+    Returns the kernels record's entry names[i] for float64 at shapes[i],
+    the shapes phase 12 fits: {name: {...}}."""
     record = {}
-    for E, G in shapes:
+    for (E, G), name in zip(shapes, list(names) + [None] * len(shapes)):
         for ld in KE.INSTANTIATIONS:
             L, counts = _inputs(torch, E, G, ld, seed=9)[:2]
             em_in = _em_inputs(torch, L, counts, 9)
-            wanted = (E, G, ld) == (*shapes[0], torch.float64)
+            wanted = name is not None and ld == torch.float64
             entry = _time_k5(torch, KE, L, em_in, exp_instr, wanted)
             if wanted:
                 record[name] = entry
@@ -895,8 +912,10 @@ def phase_kernels(torch, exp_instr, census):
                  "row ranges: max abs err " + ", ".join(line) + "; K6 replicates = K5 bits")
             del L, counts
     record = _time_wide(torch, KE, KEB, exp_instr)
-    record.update(_time_k5_at(torch, KE, exp_instr, BAND_TIMED, "em_step_band"))
-    record.update(_time_k5_at(torch, KE, exp_instr, STRIDED_TIMED, "em_step_strided"))
+    record.update(_time_k5_at(torch, KE, exp_instr, BAND_TIMED, ["em_step_band"]))
+    record.update(_time_k5_at(torch, KE, exp_instr, STRIDED_TIMED,
+                              ["em_step_strided", "em_step_strided_wide"]))
+    record.update(_time_k5_at(torch, KE, exp_instr, WALK_TIMED, ["em_step_strided_mid"]))
     E, G = E_FULL, G_FULL
     _say(f"  times at E={E} G={G} (CUDA events, cold L2: the matrix is larger than L2)")
     for (ld, cd), suffix in K.INSTANTIATIONS.items():
@@ -1952,7 +1971,8 @@ def phase_em_bootstrap(torch, lik):
     torch.cuda.empty_cache()
     launches["em_step_batch_wide"], launches["em_step_wide"] = _em_bootstrap_wide(torch,
                                                                                 counters)
-    for key, shape in (("em_band", BAND_TIMED[0]), ("em_strided", STRIDED_TIMED[0])):
+    for key, shape in (("em_band", BAND_TIMED[0]), ("em_strided", STRIDED_TIMED[0]),
+                       ("em_strided_wide", STRIDED_TIMED[1]), ("em_strided_mid", WALK_TIMED[0])):
         p, _ = _wide_problem(torch, *shape)
         launches["em_step_" + key[3:]] = _em_serial_wide(torch, p, counters, key)
         del p
@@ -1960,16 +1980,17 @@ def phase_em_bootstrap(torch, lik):
     _say(f"  phase 12 {time.perf_counter() - t0:.1f} s")
     return {name: launches[name] for name in ("em_step_batch_kernel", "em_step_batch_f32",
                                               "em_step_batch_wide", "em_step_wide",
-                                              "em_step_band", "em_step_strided")}
+                                              "em_step_band", "em_step_strided",
+                                              "em_step_strided_wide", "em_step_strided_mid")}
 
 
 def _wide_problem(torch, E=WIDE_TIMED[0][0], G=WIDE_TIMED[0][1]):
     """Phase 12's problems at G > 512 (WIDE_TIMED[0], BAND_TIMED[0],
-    STRIDED_TIMED[0]): logL and counts at (E, G) in float64, drawn on the
-    card as phase 3 draws them (_inputs, seed 9), alpha 1, on the card:
-    (the problem, its counts on the host).  Also
-    msweep_tpu_torch/time_fits.py --algo em_wide's, em_band's and
-    em_strided's, for a parent tree."""
+    STRIDED_TIMED, WALK_TIMED[0]): logL and counts at (E, G) in float64,
+    drawn on the card as phase 3 draws them (_inputs, seed 9), alpha 1, on
+    the card: (the problem, its counts on the host).  Also
+    msweep_tpu_torch/time_fits.py --algo em_wide's, em_band's, em_strided's,
+    em_strided_wide's and em_strided_mid's, for a parent tree."""
     from msweep_tpu_torch.inference.mixture import bound_const
     from msweep_tpu_torch.inference.pack import DeviceProblem
     from msweep_tpu_torch.utils import PAD_THRESHOLD
@@ -2146,6 +2167,13 @@ def main() -> int:
         # K5's strided build (4,096 < G <= 8,192), float64, timed and fitted
         # at 143,872 x 8,192.
         ("em_step_strided", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57", "em_step_strided"),
+        # Its walking layout, float64, timed and fitted at 71,936 x 16,384
+        # (a warp two chunks, 13,312 < G <= 16,384) and 95,914 x 12,288 (a
+        # warp a chunk, 9,216 < G <= 12,288).
+        ("em_step_strided_wide", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57",
+         "em_step_strided_wide"),
+        ("em_step_strided_mid", "em_step.cu", "msweep_tpu/ops/em_pallas.py:57",
+         "em_step_strided_mid"),
         ("prof_read", "prof_sweeps.cu", "tools/prof_kernels.py:118", "prof_read"),
         ("prof_exp", "prof_sweeps.cu", "tools/prof_kernels.py:178", "prof_exp"),
         ("prof_exp2", "prof_sweeps.cu", "tools/prof_kernels.py:185", "prof_exp2"),

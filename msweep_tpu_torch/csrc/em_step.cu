@@ -52,11 +52,13 @@
 // bits: where M_c is already the row's max m, the sum's exps are the
 // weights' exps, and a chunk takes its second exp only where a later chunk
 // raises the max.  Five builds, each at two CTAs an SM or (the strided
-// build's float32 rows of 19 to 32 chunks) one CTA of twice the warps, so
-// that K5 and K6's wide build share 2 x SMs row ranges at G > 512 in both
-// types (ops/em_kernels.py ranges), chosen by G and the type (em_plan;
-// mirrored by ops/em_kernels.py em_build), each timed against the others
-// with msweep_tpu_torch/time_em_step.py (PERF.md section 6):
+// build's float32 rows of 17 to 32 chunks, float64 of 19 to 24 and 27 to
+// 32) one CTA of more warps, which in float64, and in float32 at 17 and 18
+// chunks, walks two row ranges in turn, so that K5 and K6's wide build
+// share 2 x SMs row ranges at G > 512 in both types (ops/em_kernels.py
+// ranges), chosen by G and the type (em_plan; mirrored by
+// ops/em_kernels.py em_build), each timed against the others with
+// msweep_tpu_torch/time_em_step.py (PERF.md section 6):
 // - pair (em_step_pair_kernel, G <= 2 CHUNK): the one-chunk build's layout
 //   with the row's two chunks in registers, 32 cells a lane, a warp a row:
 //   one read a cell, the weights through a tile in shared memory.
@@ -79,19 +81,24 @@
 //   (rows in order, written once).  Two barriers a row: after the chunks'
 //   maxima, and after their exp sums; every warp then replays the merge.
 // - strided (em_step_strided_kernel, WARPS + 1 to STRIDED_MAX_CHUNKS
-//   chunks, and in float32 STRIDED_WIDE_MIN_CHUNKS to twice that at one
-//   CTA an SM): the owned build's row a step with more chunks than warps:
-//   warp w of NW holds chunks w, w + NW, ... of the row in registers, the
-//   CTA's float64 column partials lie in shared memory, each lane's own
-//   slots (no atomics, rows in order), logtheta is read from L1 and the
-//   row through L2 (in float32 the CTA prefetches its next row there while
-//   it works on this one).  One read of each cell from device memory and
-//   one exp (a second only before the chunk that holds the max); two
-//   barriers a row.
+//   chunks, in float32 STRIDED_WIDE_MIN_CHUNKS to twice that at one CTA
+//   an SM, and the walking layout's rows at one CTA an SM that walks
+//   STRIDED_WALK ranges: float32 17 and 18 chunks and float64 19 to 24 at
+//   a warp a chunk, float64 27 to 32 at a warp two): the owned build's row
+//   a step with more chunks than warps: warp w of NW holds chunks w, w +
+//   NW, ... of the row in registers, the CTA's float64 column partials lie
+//   in shared memory, each lane's own slots (no atomics, rows in order),
+//   logtheta is read from L1 (at a warp a chunk on the walking layout from
+//   shared memory, where its partials leave L1 too small) and the row
+//   through L2 (in float32 the CTA prefetches its next row there while it
+//   works on this one).  One read of each cell from device memory and one
+//   exp (a second only before the chunk that holds the max); two barriers
+//   a row.
 // - direct (em_step_kernel<..., false>, the other rows wider than WARPS
-//   chunks: float64 beyond STRIDED_MAX_CHUNKS, whose partials do not fit
-//   beside two CTAs, float32 of 17 and 18 chunks and beyond 32): a warp a
-//   row; phase A merges a row's chunks into its max and exp sum;
+//   chunks: beyond 32 chunks, whose partials do not fit in shared memory,
+//   and float64 of 17, 18, 25 and 26, where no one-read layout measured
+//   was faster on both fresh and late-fit inputs): a warp a row; phase A
+//   merges a row's chunks into its max and exp sum;
 //   then, a slab of columns at a time (as many chunks as 8 rows of weights
 //   fit in the CTA's shared memory), each warp reads its row's chunks in
 //   the slab again and takes w with a second exp (em_chunk_w) into the
@@ -143,14 +150,31 @@ static_assert(SPREAD_WARPS % 3 == 0 && SPREAD_WARPS % 4 == 0, "every warp in a g
 // and float32 rows of STRIDED_WIDE_MIN_CHUNKS to twice
 // STRIDED_MAX_CHUNKS chunks (9,217 to 16,384 columns) at one CTA an SM of
 // STRIDED_WIDE_WARPS warps, whose partials (up to 128 KB) do not fit
-// beside a second CTA (at 17 and 18 chunks, the last of one column and
-// loaded a cell at a time, where one or two warps hold two chunks to the
-// others' one, direct was faster: PERF.md section 6).
+// beside a second CTA (at 17 and 18 chunks, where one or two warps hold
+// two chunks to the others' one, it lost to direct, and the walking
+// layout takes them: PERF.md section 6).
+// The walking layout: one CTA an SM that walks STRIDED_WALK row ranges in
+// turn, so that K5 keeps two ranges an SM beside K6's one float64 CTA an
+// SM (ops/em_kernels.py ranges): rows of STRIDED_WALK_MIN_CHUNKS_F64
+// (float64: 9,217 to 12,288 columns) or STRIDED_WALK_MIN_CHUNKS_F32
+// (float32: 8,193 to 9,216, below STRIDED_WIDE_MIN_CHUNKS) to
+// STRIDED_WALK_WARPS chunks at STRIDED_WALK_WARPS warps of one chunk, and
+// float64 rows of STRIDED_WALK_PAIR_MIN_CHUNKS to twice STRIDED_MAX_CHUNKS
+// chunks (13,313 to 16,384 columns) at STRIDED_WIDE_WARPS warps of two
+// (the float32 one-CTA layout; 32 warps of one chunk, at 64 registers a
+// thread, were slower than direct).  Float64 rows of 17, 18, 25 and 26
+// chunks stay direct: no layout measured was faster on both fresh and
+// late-fit inputs there (PERF.md section 6).
 constexpr int STRIDED_MAX_CHUNKS = 16;
 constexpr int STRIDED_WARPS_F32 = 8;
 constexpr int STRIDED_WARPS_F64 = 16;
 constexpr int STRIDED_WIDE_MIN_CHUNKS = 19;
 constexpr int STRIDED_WIDE_WARPS = 16;
+constexpr int STRIDED_WALK_MIN_CHUNKS_F64 = 19;
+constexpr int STRIDED_WALK_MIN_CHUNKS_F32 = 17;
+constexpr int STRIDED_WALK_WARPS = 24;
+constexpr int STRIDED_WALK_PAIR_MIN_CHUNKS = 27;
+constexpr int STRIDED_WALK = 2;
 // CTAs an SM of the strided build whose CTA holds `chunks` chunks of a row.
 __host__ __device__ constexpr int strided_ctas(int chunks) {
   return chunks <= STRIDED_MAX_CHUNKS ? 2 : 1;
@@ -164,7 +188,7 @@ __global__ void __launch_bounds__(THREADS, EM_CTAS<ONE_CHUNK>)
 em_step_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
                const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
                const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
-               int64_t tq, int64_t tr, int tile, int64_t slab,
+               int64_t tq, int64_t tr, int64_t n_ranges, int tile, int64_t slab,
                CT* __restrict__ lse_out, double* __restrict__ part_scalar,
                double* __restrict__ part_cols) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -372,7 +396,7 @@ __global__ void __launch_bounds__(THREADS, EM_WIDE_CTAS)
 em_step_owned_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
                      const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
                      const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
-                     int64_t tq, int64_t tr, int tile, int64_t slab,
+                     int64_t tq, int64_t tr, int64_t n_ranges, int tile, int64_t slab,
                      CT* __restrict__ lse_out, double* __restrict__ part_scalar,
                      double* __restrict__ part_cols) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -508,7 +532,7 @@ __global__ void __launch_bounds__(THREADS, EM_WIDE_CTAS)
 em_step_pair_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
                     const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
                     const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
-                    int64_t tq, int64_t tr, int tile, int64_t slab,
+                    int64_t tq, int64_t tr, int64_t n_ranges, int tile, int64_t slab,
                     CT* __restrict__ lse_out, double* __restrict__ part_scalar,
                     double* __restrict__ part_cols) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -686,7 +710,7 @@ __global__ void __launch_bounds__(SPREAD_THREADS, EM_WIDE_CTAS)
 em_step_spread_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
                       const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
                       const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
-                      int64_t tq, int64_t tr, int tile, int64_t slab,
+                      int64_t tq, int64_t tr, int64_t n_ranges, int tile, int64_t slab,
                       CT* __restrict__ lse_out, double* __restrict__ part_scalar,
                       double* __restrict__ part_cols) {
   constexpr int NT = SPREAD_THREADS, MC = SPREAD_MAX_CHUNKS;
@@ -885,13 +909,19 @@ __device__ __forceinline__ void prefetch_l2(const void* p, int64_t bytes, int th
 // at M_c and their sum (and exp(t - m) where M_c < m) and exp(M_{c-1} -
 // M_c), a barrier, the merge in chunk order replayed by every warp, and w
 // = exp(t - m) * cnt / den added into the lane's own float64 partials in
-// shared memory, rows in order, written once at the end.
-template <typename LT, typename CT, int NW, int K>
+// shared memory, rows in order.  CTA b walks the R row ranges b R to b R +
+// R - 1 of the n_ranges in turn (the last CTA those that are left): for
+// each, its partials start at zero and are written to that range's slot
+// at its end, so each range's sums are those of a CTA of its own.  The
+// walking layout (K = 1 at one CTA an SM) reads logtheta from shared
+// memory, the chunks of as many warps as the rest of it holds (all on an
+// H100), each lane its own cells, copied once.
+template <typename LT, typename CT, int NW, int K, int R>
 __global__ void __launch_bounds__(NW * 32, strided_ctas(NW * K))
 em_step_strided_kernel(const LT* __restrict__ logL, const LT* __restrict__ counts,
                        const CT* __restrict__ lse_prev, const CT* __restrict__ logtheta,
                        const bool* __restrict__ done, int64_t E, int64_t G, bool vec,
-                       int64_t tq, int64_t tr, int tile, int64_t slab,
+                       int64_t tq, int64_t tr, int64_t n_ranges, int tile, int64_t slab,
                        CT* __restrict__ lse_out, double* __restrict__ part_scalar,
                        double* __restrict__ part_cols) {
   static_assert(sizeof(LT) == sizeof(CT), "the row is loaded in the compute type");
@@ -899,18 +929,34 @@ em_step_strided_kernel(const LT* __restrict__ logL, const LT* __restrict__ count
   // The next row is prefetched into L2 in float32 only: it gained 1-2%
   // there and lost 2-6% in float64 (PERF.md section 6).
   constexpr bool prefetch = sizeof(CT) == 4;
+  // The walking layout (one CTA an SM, a chunk a warp), whose partials
+  // leave L1 too little room for logtheta, keeps the chunks of logtheta of
+  // its first `held` warps in shared memory, each lane its own cells.
+  constexpr bool hold = K == 1 && strided_ctas(NW * K) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nc = (int)((G + CHUNK - 1) / CHUNK);
   double* part = reinterpret_cast<double*>(smem);
   CT* sc = reinterpret_cast<CT*>(smem + (int64_t)nc * CHUNK * sizeof(double));  // scalars
-  int64_t lo, hi;
-  split_rows(blockIdx.x, E, tq, tr, lo, hi);
-  double* __restrict__ cols = part_cols + (int64_t)blockIdx.x * G;
+  const int64_t fixed = strided_bytes(G, (int64_t)sizeof(CT));
+  CT* lt_slot = reinterpret_cast<CT*>(smem + fixed) + (int64_t)warp * CHUNK;
+  int held = 0;  // the rest of the dynamic shared memory, in chunks of logtheta
+  if (hold) {
+    unsigned dyn;
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
+    held = (int)(((int64_t)dyn - fixed) / (CHUNK * (int64_t)sizeof(CT)));
+  }
+  const int64_t b0 = (int64_t)blockIdx.x * R;
+  const int nb = (int)(n_ranges - b0 < R ? n_ranges - b0 : R);  // this CTA's ranges
   if (done != nullptr && *done) {
-    for (int64_t g = threadIdx.x; g < G; g += NT) cols[g] = 0.0;
-    for (int64_t e = lo + threadIdx.x; e < hi; e += NT) lse_out[e] = 0;
-    if (threadIdx.x == 0) part_scalar[blockIdx.x] = 0.0;
+    for (int q = 0; q < nb; ++q) {
+      int64_t lo, hi;
+      split_rows(b0 + q, E, tq, tr, lo, hi);
+      double* __restrict__ cols = part_cols + (b0 + q) * G;
+      for (int64_t g = threadIdx.x; g < G; g += NT) cols[g] = 0.0;
+      for (int64_t e = lo + threadIdx.x; e < hi; e += NT) lse_out[e] = 0;
+      if (threadIdx.x == 0) part_scalar[b0 + q] = 0.0;
+    }
     return;
   }
   const bool lt_vec = G % 4 == 0 && ((uintptr_t)logtheta % 16) == 0;
@@ -920,135 +966,150 @@ em_step_strided_kernel(const LT* __restrict__ logL, const LT* __restrict__ count
   for (int k = 0; k < K; ++k) {
     ch[k] = warp + k * NW;
     live[k] = ch[k] < nc;
-    if (live[k]) {
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) part[ch[k] * CHUNK + i * 32 + lane] = 0.0;
-    }
   }
-  double acc = 0.0;  // thread 0's
-  int par = 0;
-  for (int64_t e = lo; e < hi; ++e, par ^= 1) {
-    CT* cmax_sh = sc + par * nc;
-    CT* csum_sh = sc + (2 + par) * nc;
-    CT* step_sh = sc + (4 + par) * nc;
-    const LT* row = logL + e * G;
-    if (prefetch && e + 1 < hi) prefetch_l2(row + G, G * (int64_t)sizeof(LT), NT);
-    const CT cnt = (CT)counts[e];
-    const CT lp = threadIdx.x == 0 ? lse_prev[e] : (CT)0;
-    // t and each chunk's max.
-    CT x[K][NPL], cm[K];
+  const bool lt_held = hold && live[0] && warp < held;
+  if (lt_held) {
+    CT lt[NPL];
+    load_cols_vec(logtheta, (int64_t)warp * CHUNK, G, lt_vec, lane, lt);
+    store_chunk_shared(lt_slot, lane, lt);
+  }
+  int par = 0;  // runs on across ranges: the scalars' buffer of the row
+  for (int q = 0; q < nb; ++q) {
+    const int64_t b = b0 + q;
+    int64_t lo, hi;
+    split_rows(b, E, tq, tr, lo, hi);
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      if (live[k]) load_row_chunk_l2(row, (int64_t)ch[k] * CHUNK, G, vec, lane, x[k]);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      cm[k] = neg_inf<CT>();
       if (live[k]) {
-        CT lt[NPL];
-        load_cols_vec(logtheta, (int64_t)ch[k] * CHUNK, G, lt_vec, lane, lt);
 #pragma unroll
-        for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] + lt[i];
-        cm[k] = x[k][0];
-#pragma unroll
-        for (int i = 1; i < NPL; ++i) cm[k] = cmax(cm[k], x[k][i]);
+        for (int i = 0; i < NPL; ++i) part[ch[k] * CHUNK + i * 32 + lane] = 0.0;
       }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) cm[k] = cmax(cm[k], __shfl_xor_sync(0xffffffffu, cm[k], o));
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        if (live[k]) cmax_sh[ch[k]] = cm[k];
-    }
-    __syncthreads();
-    // The running maxima M_{c-1}, M_c of the warp's chunks and the row's m.
-    CT m = neg_inf<CT>(), Mp[K], Mc[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) Mp[k] = Mc[k] = 0;
-    for (int j = 0; j < nc; ++j) {
+    double acc = 0.0;  // thread 0's
+    for (int64_t e = lo; e < hi; ++e, par ^= 1) {
+      CT* cmax_sh = sc + par * nc;
+      CT* csum_sh = sc + (2 + par) * nc;
+      CT* step_sh = sc + (4 + par) * nc;
+      const LT* row = logL + e * G;
+      if (prefetch && e + 1 < hi) prefetch_l2(row + G, G * (int64_t)sizeof(LT), NT);
+      const CT cnt = (CT)counts[e];
+      const CT lp = threadIdx.x == 0 ? lse_prev[e] : (CT)0;
+      // t and each chunk's max.
+      CT x[K][NPL], cm[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        if (j == ch[k]) Mp[k] = m;
-      m = cmax(m, cmax_sh[j]);
+        if (live[k]) load_row_chunk_l2(row, (int64_t)ch[k] * CHUNK, G, vec, lane, x[k]);
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        if (j == ch[k]) Mc[k] = m;
-    }
-    // Each chunk's exps at M_c and their sum; exp(t - m) in x.
-    CT cs[K];
+      for (int k = 0; k < K; ++k) {
+        cm[k] = neg_inf<CT>();
+        if (live[k]) {
+          CT lt[NPL];
+          if (lt_held) load_chunk_shared(lt_slot, CHUNK, lane, (CT)0, lt);
+          else load_cols_vec(logtheta, (int64_t)ch[k] * CHUNK, G, lt_vec, lane, lt);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      cs[k] = 0;
-      if (!live[k]) continue;
-      if (Mc[k] == m) {
+          for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] + lt[i];
+          cm[k] = x[k][0];
 #pragma unroll
-        for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] - Mc[k];
-        row_exps(x[k]);
-#pragma unroll
-        for (int i = 0; i < NPL; ++i) cs[k] += x[k][i];
-      } else {
-#pragma unroll
-        for (int i = 0; i < NPL; ++i) cs[k] += em_exp(x[k][i] - Mc[k]);
-#pragma unroll
-        for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] - m;
-        row_exps(x[k]);
+          for (int i = 1; i < NPL; ++i) cm[k] = cmax(cm[k], x[k][i]);
+        }
       }
-    }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
+      for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], o);
-    }
-    if (lane == 0) {
+        for (int k = 0; k < K; ++k) cm[k] = cmax(cm[k], __shfl_xor_sync(0xffffffffu, cm[k], o));
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (live[k]) cmax_sh[ch[k]] = cm[k];
+      }
+      __syncthreads();
+      // The running maxima M_{c-1}, M_c of the warp's chunks and the row's m.
+      CT m = neg_inf<CT>(), Mp[K], Mc[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) Mp[k] = Mc[k] = 0;
+      for (int j = 0; j < nc; ++j) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (j == ch[k]) Mp[k] = m;
+        m = cmax(m, cmax_sh[j]);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (j == ch[k]) Mc[k] = m;
+      }
+      // Each chunk's exps at M_c and their sum; exp(t - m) in x.
+      CT cs[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        cs[k] = 0;
+        if (!live[k]) continue;
+        if (Mc[k] == m) {
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] - Mc[k];
+          row_exps(x[k]);
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) cs[k] += x[k][i];
+        } else {
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) cs[k] += em_exp(x[k][i] - Mc[k]);
+#pragma unroll
+          for (int i = 0; i < NPL; ++i) x[k][i] = x[k][i] - m;
+          row_exps(x[k]);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], o);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (live[k]) {
+            csum_sh[ch[k]] = cs[k];
+            step_sh[ch[k]] = ch[k] > 0 ? cexp(Mp[k] - Mc[k]) : (CT)0;
+          }
+      }
+      __syncthreads();
+      // The merge in chunk order (the running max from the maxima).
+      CT mp = neg_inf<CT>(), den = 0;
+      for (int j = 0; j < nc; ++j) {
+        den = (mp == neg_inf<CT>()) ? csum_sh[j] : den * step_sh[j] + csum_sh[j];
+        mp = cmax(mp, cmax_sh[j]);
+      }
+      const CT crow = cnt / den;
+      if (threadIdx.x == 0) {
+        const CT lse = mp + clog(den);
+        lse_out[e] = lse;
+        acc += (double)(cnt * (lse - lp));
+      }
+      // The weights into the lane's partials.
 #pragma unroll
       for (int k = 0; k < K; ++k)
         if (live[k]) {
-          csum_sh[ch[k]] = cs[k];
-          step_sh[ch[k]] = ch[k] > 0 ? cexp(Mp[k] - Mc[k]) : (CT)0;
+#pragma unroll
+          for (int i = 0; i < NPL; ++i)
+            part[ch[k] * CHUNK + i * 32 + lane] += (double)(x[k][i] * crow);
         }
     }
-    __syncthreads();
-    // The merge in chunk order (the running max from the maxima).
-    CT mp = neg_inf<CT>(), den = 0;
-    for (int j = 0; j < nc; ++j) {
-      den = (mp == neg_inf<CT>()) ? csum_sh[j] : den * step_sh[j] + csum_sh[j];
-      mp = cmax(mp, cmax_sh[j]);
-    }
-    const CT crow = cnt / den;
-    if (threadIdx.x == 0) {
-      const CT lse = mp + clog(den);
-      lse_out[e] = lse;
-      acc += (double)(cnt * (lse - lp));
-    }
-    // The weights into the lane's partials.
+    double* __restrict__ cols = part_cols + b * G;
 #pragma unroll
     for (int k = 0; k < K; ++k)
       if (live[k]) {
 #pragma unroll
-        for (int i = 0; i < NPL; ++i)
-          part[ch[k] * CHUNK + i * 32 + lane] += (double)(x[k][i] * crow);
+        for (int i = 0; i < NPL; ++i) {
+          const int64_t g = slot_col((int64_t)ch[k] * CHUNK, i, lane);
+          if (g < G) cols[g] = part[ch[k] * CHUNK + i * 32 + lane];
+        }
       }
+    if (threadIdx.x == 0) part_scalar[b] = acc;
   }
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (live[k]) {
-#pragma unroll
-      for (int i = 0; i < NPL; ++i) {
-        const int64_t g = slot_col((int64_t)ch[k] * CHUNK, i, lane);
-        if (g < G) cols[g] = part[ch[k] * CHUNK + i * 32 + lane];
-      }
-    }
-  if (threadIdx.x == 0) part_scalar[blockIdx.x] = acc;
 }
 
 // What G columns run: the build (EmBuild), its kernel, its tile (rows of
 // weights, or the owned build's rows in flight), its columns (the direct
-// build's slab, else G) and the dynamic shared memory, each tile sized to
+// build's slab, else G), the dynamic shared memory, each tile sized to
 // the kernel's shared-memory budget (read from the runtime once per
-// device).
+// device), and the row ranges a CTA walks.
 struct EmPlan {
   int build = EM_ONE_CHUNK;
   const void* kernel = nullptr;
@@ -1056,6 +1117,7 @@ struct EmPlan {
   int tile = 0;
   int64_t slab = 0;
   size_t smem = 0;
+  int ranges = 1;
 };
 
 // The one-chunk and direct builds.  The direct build's slab is the row's
@@ -1082,16 +1144,17 @@ static cudaError_t em_plan_one(int64_t G, EmPlan& p) {
   return err;
 }
 
-// The strided build at NW warps of K chunks each, where its partials fit
-// in the budget of its CTAs an SM (not so: direct).  At two CTAs an SM it
-// asks for more than a third of the SM's shared memory (two thirds of
-// that budget), so that no third CTA fits: K5's CTAs an SM set the row
-// ranges it shares with K6 (ops/em_kernels.py ranges).
-template <typename LT, typename CT, int NW, int K>
+// The strided build at NW warps of K chunks each, each CTA walking R row
+// ranges, where its partials fit in the budget of its CTAs an SM (not so:
+// direct).  At two CTAs an SM it asks for more than a third of the SM's
+// shared memory (two thirds of that budget), so that no third CTA fits:
+// K5's CTAs an SM and ranges a CTA set the row ranges it shares with K6
+// (ops/em_kernels.py ranges).
+template <typename LT, typename CT, int NW, int K, int R = 1>
 static cudaError_t em_plan_strided(int64_t G, EmPlan& p) {
   static WtileBudget cache;
   int64_t budget = 0;
-  const void* kernel = (const void*)em_step_strided_kernel<LT, CT, NW, K>;
+  const void* kernel = (const void*)em_step_strided_kernel<LT, CT, NW, K, R>;
   const cudaError_t err = wtile_budget(kernel, strided_ctas(NW * K), cache, budget);
   if (err != cudaSuccess) return err;
   const int64_t need = strided_bytes(G, (int64_t)sizeof(CT));
@@ -1101,8 +1164,14 @@ static cudaError_t em_plan_strided(int64_t G, EmPlan& p) {
   p.threads = NW * 32;
   p.tile = 1;
   p.slab = G;
+  p.ranges = R;
   const int64_t least = strided_ctas(NW * K) == 2 ? budget * 2 / 3 + 16 : 0;
   p.smem = (size_t)(need > least ? need : least);
+  if (K == 1 && strided_ctas(NW * K) == 1) {  // the walking layout's chunks of logtheta
+    const int64_t chunk = CHUNK * (int64_t)sizeof(CT), nc = (G + CHUNK - 1) / CHUNK;
+    const int64_t fit = (budget - need) / chunk;
+    p.smem = (size_t)(need + (fit < nc ? fit : nc) * chunk);
+  }
   return cudaSuccess;
 }
 
@@ -1110,7 +1179,8 @@ static cudaError_t em_plan_strided(int64_t G, EmPlan& p) {
 // spread build (G <= SPREAD_MAX_CHUNKS CHUNK), else the owned build where
 // it takes G and two rows fit, else the strided build (rows of more
 // chunks than warps, at most STRIDED_MAX_CHUNKS, or in float32
-// STRIDED_WIDE_MIN_CHUNKS to twice that), else direct.
+// STRIDED_WIDE_MIN_CHUNKS to twice that, or the walking layout's rows),
+// else direct.
 template <typename LT, typename CT>
 static cudaError_t em_plan(int64_t G, EmPlan& p) {
   if (G <= CHUNK) return em_plan_one<LT, CT, true>(G, p);
@@ -1123,6 +1193,15 @@ static cudaError_t em_plan(int64_t G, EmPlan& p) {
       if (nc >= STRIDED_WIDE_MIN_CHUNKS && nc <= 2 * STRIDED_MAX_CHUNKS)
         return em_plan_strided<LT, CT, STRIDED_WIDE_WARPS,
                                2 * STRIDED_MAX_CHUNKS / STRIDED_WIDE_WARPS>(G, p);
+    }
+    constexpr int walk_min =
+        sizeof(CT) == 4 ? STRIDED_WALK_MIN_CHUNKS_F32 : STRIDED_WALK_MIN_CHUNKS_F64;
+    if (nc >= walk_min && nc <= STRIDED_WALK_WARPS)
+      return em_plan_strided<LT, CT, STRIDED_WALK_WARPS, 1, STRIDED_WALK>(G, p);
+    if constexpr (sizeof(CT) == 8) {
+      if (nc >= STRIDED_WALK_PAIR_MIN_CHUNKS && nc <= 2 * STRIDED_MAX_CHUNKS)
+        return em_plan_strided<LT, CT, STRIDED_WIDE_WARPS,
+                               2 * STRIDED_MAX_CHUNKS / STRIDED_WIDE_WARPS, STRIDED_WALK>(G, p);
     }
     return em_plan_one<LT, CT, false>(G, p);
   }
@@ -1177,9 +1256,10 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
   bool vec = vector_rows(logL, G);
   int64_t tq = 0, tr = 0;
   split_plan(E, n_cta, tq, tr);
-  void* args[] = {&logL, &counts, &lse_prev, &logtheta, &done, &E, &G, &vec, &tq, &tr,
+  void* args[] = {&logL, &counts, &lse_prev, &logtheta, &done, &E, &G, &vec, &tq, &tr, &n_cta,
                   &plan.tile, &plan.slab, &lse_out, &part_scalar, &part_cols};
-  err = cudaLaunchKernel(plan.kernel, dim3((unsigned)n_cta), dim3(plan.threads), args, plan.smem,
+  const int64_t ctas = (n_cta + plan.ranges - 1) / plan.ranges;
+  err = cudaLaunchKernel(plan.kernel, dim3((unsigned)ctas), dim3(plan.threads), args, plan.smem,
                          s);
   if (err != cudaSuccess) return (int)err;
   rcg_reduce_scalar<<<1, 32, 0, s>>>((const double*)part_scalar, n_cta, (double*)out_scalar);
@@ -1193,8 +1273,8 @@ static int launch_em_step(const void* logL, const void* counts, const void* lse_
 
 // out = {registers a thread, local (spilled) bytes a thread, rows and
 // columns of the tile at G columns, CTAs resident an SM at that tile, the
-// build (EmBuild)}, for the kernel that G columns run, on the current
-// device.
+// build (EmBuild), the row ranges a CTA walks}, for the kernel that G
+// columns run, on the current device.
 template <typename LT, typename CT>
 static int info_em_step(int64_t G, int* out) {
   EmPlan plan;
@@ -1212,6 +1292,7 @@ static int info_em_step(int64_t G, int* out) {
   out[3] = (int)plan.slab;
   out[4] = ctas;
   out[5] = plan.build;
+  out[6] = plan.ranges;
   return 0;
 }
 
@@ -1257,11 +1338,12 @@ extern "C" int em_exp_check(int64_t n, void* bad, void* first, void* stream) {
 // Plain C entry points, one per instantiation (matrix type _ compute type).
 // counts is (E,) in the matrix type; lse_prev, lse_out (E,) and logtheta
 // (G,) in the compute type; done is one bool or null (never done).
-// n_cta is the number of row ranges (rcg_common.cuh split_plan), one CTA
-// each.  part_scalar is scratch of n_cta doubles,
-// part_cols of n_cta * G; out_scalar is one double (ddot), out_cols G
-// doubles (colsum); all on the device.  em_step_info_* fills six ints
-// (rcg::info_em_step).  Both return a CUDA error.
+// n_cta is the number of row ranges (rcg_common.cuh split_plan), the
+// build's ranges a CTA each (the seventh int of its info).  part_scalar is
+// scratch of n_cta doubles, part_cols of n_cta * G (a slot a range);
+// out_scalar is one double (ddot), out_cols G doubles (colsum); all on the
+// device.  em_step_info_* fills seven ints (rcg::info_em_step).  Both
+// return a CUDA error.
 #define EM_STEP_ENTRY(NAME, LT, CT)                                                          \
   extern "C" int NAME(const void* logL, const void* counts, const void* lse_prev,            \
                       const void* logtheta, const void* done, int64_t E, int64_t G,          \

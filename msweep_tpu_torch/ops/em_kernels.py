@@ -101,9 +101,10 @@ def read_info(entry: str, G: int, device_index: int, n: int) -> tuple[int, ...]:
 
 # K5's builds (csrc/em_step.cu EmBuild), by the number its *_info reports.
 EM_BUILDS = ("one_chunk", "pair", "owned", "direct", "spread", "strided")
-# Ints that K5's *_info entry fills (em_step.cu info_em_step); the last is
-# the build's number.
-K5_INFO = ("registers", "spill_bytes", "tile_rows", "tile_cols", "ctas_per_sm", "build")
+# Ints that K5's *_info entry fills (em_step.cu info_em_step); the sixth
+# is the build's number, the seventh the row ranges a CTA walks.
+K5_INFO = ("registers", "spill_bytes", "tile_rows", "tile_cols", "ctas_per_sm", "build",
+           "ranges_per_cta")
 # csrc/rcg_common.cuh and em_step.cu constants that the plan reads.
 CHUNK, WARPS, TILE_ROWS = 512, 8, 32
 OWNED_MIN_CHUNKS, OWNED_STAGES = 5, 4
@@ -112,9 +113,16 @@ OWNED_MIN_CHUNKS, OWNED_STAGES = 5, 4
 SPREAD_MAX_CHUNKS, SPREAD_WARPS = 4, 12
 SPREAD_ROW_SCALARS = 3 * SPREAD_MAX_CHUNKS + 2
 # The strided build: rows of WARPS + 1 to STRIDED_MAX_CHUNKS chunks at two
-# CTAs an SM, and float32 rows of STRIDED_WIDE_MIN_CHUNKS to twice
-# STRIDED_MAX_CHUNKS chunks at one CTA an SM.
+# CTAs an SM, float32 rows of STRIDED_WIDE_MIN_CHUNKS to twice
+# STRIDED_MAX_CHUNKS chunks at one CTA an SM, and its walking layout at
+# one CTA an SM that walks STRIDED_WALK row ranges: rows of
+# STRIDED_WALK_MIN_CHUNKS (by the cell's bytes) to STRIDED_WALK_WARPS
+# chunks (in float32 below STRIDED_WIDE_MIN_CHUNKS) at a warp a chunk, and
+# float64 rows of STRIDED_WALK_PAIR_MIN_CHUNKS to twice STRIDED_MAX_CHUNKS
+# at a warp two chunks.
 STRIDED_MAX_CHUNKS, STRIDED_WIDE_MIN_CHUNKS = 16, 19
+STRIDED_WALK_MIN_CHUNKS, STRIDED_WALK_WARPS, STRIDED_WALK = {4: 17, 8: 19}, 24, 2
+STRIDED_WALK_PAIR_MIN_CHUNKS = 27
 # An H100's shared memory (bytes): an SM's, the runtime's reserve a CTA,
 # and the most one CTA may opt in to.
 H100_SMEM = (233_472, 1_024, 232_448)
@@ -166,14 +174,16 @@ def em_build(G: int, itemsize: int, smem: tuple[int, int, int] = H100_SMEM) -> t
     OWNED_MIN_CHUNKS to 8 chunks (2,048 < G <= 4,096) the owned build with
     as many rows in flight as fit (at most OWNED_STAGES, at least two),
     rows of 9 to STRIDED_MAX_CHUNKS chunks (4,096 < G <= 8,192) the
-    strided build at two CTAs an SM, and in float32 rows of 19 to 32
-    chunks (9,216 < G <= 16,384) at one CTA an SM, each where its
-    partials fit; every other row the direct build, whose rows are read
-    from device memory twice.  The tile is the rows of weights in shared
-    memory (the spread build's a multiple of its groups of NC warps), the
-    owned build's rows in flight, or the strided build's one row at a
-    time.  The one-chunk, pair and direct builds hold 3, 1 and 3 arrays of
-    32 cells in static shared memory."""
+    strided build at two CTAs an SM, and at one CTA an SM float32 rows of
+    17 to 32 chunks (8,192 < G <= 16,384) and float64 rows of 19 to 24 and
+    27 to 32 (9,216 < G <= 12,288 and 13,312 < G <= 16,384;
+    walking_rows), each where its partials fit;
+    every other row the direct build, whose rows are read from device
+    memory twice.  The tile is the rows of weights in shared memory (the
+    spread build's a multiple of its groups of NC warps), the owned
+    build's rows in flight, or the strided build's one row at a time.
+    The one-chunk, pair and direct builds hold 3, 1 and 3 arrays of 32
+    cells in static shared memory."""
     if G <= CHUNK:
         return "one_chunk", _wtile_rows(_budget(3, 3 * TILE_ROWS * itemsize, smem),
                                         max(G, 1) * itemsize)
@@ -187,8 +197,9 @@ def em_build(G: int, itemsize: int, smem: tuple[int, int, int] = H100_SMEM) -> t
     nc = -(-G // CHUNK)
     if WARPS < nc <= STRIDED_MAX_CHUNKS and strided_bytes(G, itemsize) <= _budget(2, 0, smem):
         return "strided", 1
-    if (itemsize == 4 and STRIDED_WIDE_MIN_CHUNKS <= nc <= 2 * STRIDED_MAX_CHUNKS
-            and strided_bytes(G, itemsize) <= _budget(1, 0, smem)):
+    one_cta = ((itemsize == 4 and STRIDED_WIDE_MIN_CHUNKS <= nc <= 2 * STRIDED_MAX_CHUNKS)
+               or walking_rows(nc, itemsize))
+    if one_cta and strided_bytes(G, itemsize) <= _budget(1, 0, smem):
         return "strided", 1
     if OWNED_MIN_CHUNKS <= nc <= WARPS:
         budget = _budget(2, 0, smem)
@@ -201,12 +212,43 @@ def em_build(G: int, itemsize: int, smem: tuple[int, int, int] = H100_SMEM) -> t
     return "direct", _wtile_rows(budget, slab * itemsize)
 
 
+def walking_rows(nc: int, itemsize: int) -> bool:
+    """Rows of nc chunks of `itemsize`-byte cells that the strided build's
+    walking layout takes (em_step.cu em_plan): STRIDED_WALK_MIN_CHUNKS to
+    STRIDED_WALK_WARPS chunks, in float32 below STRIDED_WIDE_MIN_CHUNKS
+    (float32 8,193 to 9,216 columns, float64 9,217 to 12,288), and float64
+    rows of STRIDED_WALK_PAIR_MIN_CHUNKS to twice STRIDED_MAX_CHUNKS
+    (13,313 to 16,384)."""
+    if itemsize == 8 and STRIDED_WALK_PAIR_MIN_CHUNKS <= nc <= 2 * STRIDED_MAX_CHUNKS:
+        return True
+    top = STRIDED_WALK_WARPS if itemsize == 8 else STRIDED_WIDE_MIN_CHUNKS - 1
+    return STRIDED_WALK_MIN_CHUNKS[itemsize] <= nc <= top
+
+
+def ranges_per_cta(G: int, itemsize: int, smem: tuple[int, int, int] = H100_SMEM) -> int:
+    """The row ranges that a CTA of K5's build at G columns walks
+    (em_step.cu em_plan, the seventh int of its info): STRIDED_WALK for
+    the strided build's walking layout, 1 for every other build."""
+    walks = em_build(G, itemsize, smem)[0] == "strided" and walking_rows(-(-G // CHUNK),
+                                                                          itemsize)
+    return STRIDED_WALK if walks else 1
+
+
+def walk_ranges(n: int, per_cta: int) -> list[range]:
+    """The row ranges (of n) that each CTA of a K5 launch walks in turn
+    (em_step.cu launch_em_step, em_step_strided_kernel): ceil(n / per_cta)
+    CTAs, CTA b ranges b per_cta to b per_cta + per_cta - 1, the last
+    those that are left.  Every build but the walking layout takes one
+    range a CTA."""
+    return [range(b, min(n, b + per_cta)) for b in range(0, n, per_cta)]
+
+
 def kernel_info(suffix: str, G: int, device_index: int) -> dict:
     """K5's build and launch at G columns on a card (K5_INFO, from the
     runtime, em_step.cu info_em_step): registers and local (spilled) bytes
     a thread, its tile (rows of weights, the owned build's rows in
     flight, or the strided build's one row) and columns, CTAs resident an
-    SM, and the build's name (EM_BUILDS)."""
+    SM, the build's name (EM_BUILDS) and the row ranges a CTA walks."""
     info = dict(zip(K5_INFO, read_info(f"em_step_{suffix}_info", G, device_index, len(K5_INFO))))
     info["build"] = EM_BUILDS[info["build"]]
     if info["ctas_per_sm"] < 1:
@@ -240,12 +282,13 @@ def ranges(suffix: str, E: int, G: int, device: torch.device,
     """The row ranges that K5 and K6 (ops/em_batch_kernels.py) share at
     (E, G) in one type on `device` (rcg_kernels.em_ranges): a whole number
     of waves of K5's build and of K6's, whose CTAs an SM come from the
-    runtime (kernel_info, batch_info)."""
+    runtime (kernel_info, batch_info); K5's count its CTAs an SM times the
+    ranges a CTA walks, its range slots an SM."""
     from ._build import tile_rows
 
     index = device.index if device.index is not None else torch.cuda.current_device()
-    ctas = (kernel_info(suffix, G, index)["ctas_per_sm"],
-            batch_info(suffix, G, index)["ctas_per_sm"])
+    k5 = kernel_info(suffix, G, index)
+    ctas = (k5["ctas_per_sm"] * k5["ranges_per_cta"], batch_info(suffix, G, index)["ctas_per_sm"])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return em_ranges(E, tile_rows(), sms, ctas, max_ranges)
 

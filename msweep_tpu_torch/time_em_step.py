@@ -7,12 +7,15 @@ two versions of the kernel can be compared in one call:
 DIR is the root of a checkout: its msweep_tpu_torch/ is imported and its
 kernels are built there.  The default shapes hold the same ~1.18e9 cells
 at 512 groups (the one-chunk build), 4,096 (the owned build) and 16,384
-(the direct build); the spread build's band (rows of three and four
+(the strided build); the spread build's band (rows of three and four
 chunks) at the same cells is --shapes 575488x2048,766816x1537,1149856x1025
 (four whole chunks; four, the last one column; three, the last one
 column), and the rows beyond 4,096 groups 143872x8192,71936x16384 (the
-strided build's last width in float64, and 32 chunks: the strided build
-in float32, the direct build in float64).  The inputs are drawn on the card from --seed as
+strided build's last width at two CTAs an SM, and 32 chunks: its one-CTA
+layout in float32, its walking layout in float64); the walking layout's
+widths are 71936x16384,95914x12288,143856x8193 (float64 at 16 warps of
+two chunks and at 24 of one, float32 at 24 of one; float64 direct at
+8,193).  The inputs are drawn on the card from --seed as
 chip_smoke.py phase 3 draws them (logL the log-softmax of normal logits
 times 2, counts in 1..39, ~20% of theta at 0, lse_prev near the row
 logsumexps), so the times compare with that phase's.  The first line is
@@ -21,8 +24,9 @@ for each shape and type: the kernel's ms a pass (CUDA events, the mean of
 --reps calls after one warm-up), checksums of its outputs and a SHA-256
 of their bytes (two trees with the same row ranges give the same digest
 where they give the same bits), and the registers, spills, tile rows, CTAs
-an SM and build where the tree's em_kernels reports them (kernel_info).  Run it as a file, not with -m, so that the
-tree's package is the one imported.
+an SM, build and ranges a CTA where the tree's em_kernels reports them
+(kernel_info).  Run it as a file, not with -m, so that the tree's package
+is the one imported.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 the checkout given by --tree, so that two versions of the optimizer loops
 can be compared in one call:
 
-    python3 msweep_tpu_torch/time_fits.py --tree DIR [--algo rcg,em,em64,em_wide,em_band,em_strided]
+    python3 msweep_tpu_torch/time_fits.py --tree DIR [--algo rcg,em,em64,em_wide,...]
 
 DIR is the root of a checkout: its msweep_tpu_torch/ is imported and its
 kernels are built there (before the clock starts).  rcg and em run on the
@@ -10,13 +10,14 @@ synthetic community of phase 5 (2,301,952 x 512, seed 1): rcg packed in
 float32 with the escalation tail (fit_result "rcgcpu", tol 1e-6), EM
 packed in float64 (fit_result "emgpu", tol 1e-6, its 5000-iteration cap);
 em64 is chip_smoke.py phase 11's 64 float64 EM iterations (tol -1) there.
-em_wide, em_band and em_strided are chip_smoke.py phase 12's serial EM at
-1,150,976 x 1,024, 575,488 x 2,048 and 143,872 x 8,192 (WIDE_TIMED[0],
-BAND_TIMED[0], STRIDED_TIMED[0]; K5's pair, spread and strided builds):
-the problem drawn by this checkout's chip_smoke.py (_wide_problem),
-whatever DIR is, and fit_em_result in float64 for its SERIAL_WIDE_ITERS
-iterations in chunks of 64 (PARENT["em_wide"], PARENT["em_band"] and
-PARENT["em_strided"] there are the parent trees' objectives).
+em_wide, em_band, em_strided, em_strided_wide and em_strided_mid are
+chip_smoke.py phase 12's serial EM at 1,150,976 x 1,024, 575,488 x 2,048,
+143,872 x 8,192, 71,936 x 16,384 and 95,914 x 12,288 (WIDE_TIMED[0],
+BAND_TIMED[0], STRIDED_TIMED[0] and [1], WALK_TIMED[0]; K5's pair and
+spread builds, its strided build and that build's walking layout): the
+problem drawn by this checkout's chip_smoke.py (_wide_problem), whatever
+DIR is, and fit_em_result in float64 for its SERIAL_WIDE_ITERS iterations
+in chunks of 64 (PARENT[algo] there is the parent tree's objective).
 The first line is the card's name and power limit (nvidia-smi); then one
 JSON object a line for each fit: its seconds (host clock, the fit alone,
 ended by reading its result), iterations, objective (repr, to the bit) and
@@ -33,9 +34,11 @@ import subprocess
 import sys
 import time
 
-# The serial-EM legs at G > 512, by the chip_smoke.py list whose first
-# shape each fits.
-SERIAL_WIDE = {"em_wide": "WIDE_TIMED", "em_band": "BAND_TIMED", "em_strided": "STRIDED_TIMED"}
+# The serial-EM legs at G > 512, by the chip_smoke.py list and the index
+# of the shape each fits.
+SERIAL_WIDE = {"em_wide": ("WIDE_TIMED", 0), "em_band": ("BAND_TIMED", 0),
+               "em_strided": ("STRIDED_TIMED", 0), "em_strided_wide": ("STRIDED_TIMED", 1),
+               "em_strided_mid": ("WALK_TIMED", 0)}
 
 
 def main(argv=None) -> int:
@@ -43,7 +46,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--algo", default="rcg,em",
                     help="comma-separated: rcg, em, em64, em_wide (serial EM at 1,024 "
-                         "groups), em_band (2,048), em_strided (8,192)")
+                         "groups), em_band (2,048), em_strided (8,192), em_strided_wide "
+                         "(16,384), em_strided_mid (12,288)")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path[0] = tree  # the tree's package, not this file's directory
@@ -97,8 +101,9 @@ def main(argv=None) -> int:
 
 def _em_wide(torch, tree, KE, algo):
     """chip_smoke.py phase 12's serial EM at 1,024 groups (em_wide), 2,048
-    (em_band) or 8,192 (em_strided) with the tree's package: one JSON line
-    (seconds, ms an iteration, objective, K5's launches)."""
+    (em_band), 8,192 (em_strided), 16,384 (em_strided_wide) or 12,288
+    (em_strided_mid) with the tree's package: one JSON line (seconds, ms
+    an iteration, objective, K5's launches)."""
     import importlib.util
 
     from msweep_tpu_torch.inference import fit_em_result
@@ -108,7 +113,8 @@ def _em_wide(torch, tree, KE, algo):
     spec = importlib.util.spec_from_file_location("chip_smoke_draw", here)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    p, _ = cs._wide_problem(torch, *getattr(cs, SERIAL_WIDE[algo])[0])
+    shapes, index = SERIAL_WIDE[algo]
+    p, _ = cs._wide_problem(torch, *getattr(cs, shapes)[index])
     iters = cs.SERIAL_WIDE_ITERS
     KE.em_step_kernel.launches = 0
     torch.cuda.synchronize()

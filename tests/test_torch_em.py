@@ -229,9 +229,12 @@ def test_em_build_by_width(itemsize):
     4,096 columns) with the most rows in flight (two to four) whose rings
     fit beside logtheta, the strided build (one row at a time) for rows
     of nine to sixteen chunks (4,097 to 8,192 columns) with its partials
-    within two CTAs' share, and in float32 for rows of 19 to 32 chunks
-    (9,217 to 16,384 columns, twice the warps) within one CTA's, and the direct build with a tile
-    of weights for every warp at the other widths."""
+    within two CTAs' share, and within one CTA's share in float32 for rows
+    of 17 to 32 chunks (8,193 to 16,384 columns) and in float64 for rows of
+    19 to 24 and 27 to 32 (9,217 to 12,288 and 13,313 to 16,384 columns),
+    on the walking layout (whose CTA walks two row ranges) in float32 at 17
+    and 18 chunks and in float64, and the direct build with a tile of
+    weights for every warp at the other widths."""
     budget = K._budget(2, 0, K.H100_SMEM)
     for G in list(range(513, 4200, 7)) + [1536, 1537, 2048, 2049, 4096, 4097, 8192, 8193,
                                           8705, 9216, 9217, 12_000, 16_384, 16_385, 29_000,
@@ -251,11 +254,16 @@ def test_em_build_by_width(itemsize):
             assert tile == K.OWNED_STAGES or K.owned_bytes(G, itemsize, tile + 1) > budget
         elif G <= 8192:
             assert (build, tile) == ("strided", 1) and K.strided_bytes(G, itemsize) <= budget, G
-        elif 9216 < G <= 16_384 and itemsize == 4:
+        elif G <= 16_384 and (itemsize == 4 or 9216 < G <= 12_288 or G > 13_312):
             assert (build, tile) == ("strided", 1), G
             assert K.strided_bytes(G, itemsize) <= K._budget(1, 0, K.H100_SMEM)
+            walks = itemsize == 8 or G <= 9216
+            assert K.ranges_per_cta(G, itemsize) == (K.STRIDED_WALK if walks else 1), G
         else:
             assert build == "direct" and tile >= K.WARPS, G
+            assert K.ranges_per_cta(G, itemsize) == 1, G
+        if G <= 8192:
+            assert K.ranges_per_cta(G, itemsize) == 1, G
 
 
 @pytest.mark.parametrize("G,itemsize,want", [
@@ -265,15 +273,29 @@ def test_em_build_by_width(itemsize):
     (1537, 4, ("spread", 15)), (2048, 8, ("spread", 6)), (2048, 4, ("spread", 12)),
     (2049, 8, ("owned", 4)), (4096, 8, ("owned", 2)), (4096, 4, ("owned", 4)),
     (4097, 8, ("strided", 1)), (4097, 4, ("strided", 1)), (8192, 8, ("strided", 1)),
-    (8192, 4, ("strided", 1)), (8193, 8, ("direct", 8)), (8193, 4, ("direct", 8)),
-    (9216, 4, ("direct", 8)), (9217, 4, ("strided", 1)), (16_384, 8, ("direct", 8)),
+    (8192, 4, ("strided", 1)), (8193, 8, ("direct", 8)), (8193, 4, ("strided", 1)),
+    (9216, 4, ("strided", 1)), (9217, 4, ("strided", 1)), (16_384, 8, ("strided", 1)),
     (16_384, 4, ("strided", 1)), (16_385, 4, ("direct", 8)),
-    (30_000, 4, ("direct", 8))])
+    (30_000, 4, ("direct", 8)), (9216, 8, ("direct", 8)), (9217, 8, ("strided", 1)),
+    (12_288, 8, ("strided", 1)), (12_289, 8, ("direct", 8)), (13_312, 8, ("direct", 8)),
+    (13_313, 8, ("strided", 1)), (16_385, 8, ("direct", 8))])
 def test_em_build_pins(G, itemsize, want):
     """The builds and tiles at the widths the card's checks run (phase 3,
     test_cuda_em_kernel_matches_plain), as em_step.cu em_plan picks them
     on an H100 (chip_smoke.py phase 3 holds the runtime's to em_build)."""
     assert K.em_build(G, itemsize) == want
+
+
+@pytest.mark.parametrize("G,itemsize,walk", [
+    (512, 8, 1), (1024, 4, 1), (8192, 8, 1), (8192, 4, 1), (8193, 8, 1), (8193, 4, 2),
+    (9216, 4, 2), (9217, 4, 1), (9217, 8, 2), (12_288, 8, 2), (12_289, 8, 1),
+    (13_312, 8, 1), (13_313, 8, 2), (16_384, 8, 2), (16_384, 4, 1), (16_385, 8, 1)])
+def test_ranges_per_cta_pins(G, itemsize, walk):
+    """The row ranges a CTA of K5 walks (em_step.cu em_plan, the seventh
+    int of its info): two on the strided build's walking layout (float64
+    rows of 19 to 24 and 27 to 32 chunks, float32 of 17 and 18), whose one
+    CTA an SM then fills two range slots, and one on every other build."""
+    assert K.ranges_per_cta(G, itemsize) == walk
 
 
 @pytest.mark.parametrize("G,itemsize,cells", [(1025, 8, 1536), (2048, 4, 2048), (1537, 8, 2048)])
@@ -337,16 +359,25 @@ def cuda_device():
     (301, 8192, False), (53, 8193, False),  # the strided build's last width (float64), one past
     (53, 9217, False),  # its first in float32 at one CTA an SM, scalar loads
     (37, 16_384, False), (37, 16_385, False),  # its last in float32, and direct beyond
+    # The walking layout (float64 9,217 to 12,288 at a warp a chunk and
+    # 13,313 to 16,384 at a warp two, float32 8,193 to 9,216): its widths'
+    # ends, odd range counts (31 and 3: the last CTA walks one), 264 ranges
+    # of one or two tiles; float32's last walking width, float64's last
+    # direct one below it, and the direct widths between in float64.
+    (301, 12_288, False), (961, 12_288, False), (65, 12_288, False),
+    (9000, 12_288, False), (53, 9216, False), (37, 12_289, False),
+    (37, 13_312, False), (53, 13_313, False), (65, 16_384, False), (9000, 16_384, False),
 ])
 @pytest.mark.parametrize("dtype", list(K.INSTANTIATIONS))
 def test_cuda_em_kernel_matches_plain(cuda_device, dtype, E, G, padded):
     """Each instantiation of K5 against its plain version on the card, on
     rows of one chunk, of two (the pair build), of three and four (the
-    spread build), of five to eight (the owned build), of nine to sixteen
-    (the strided build; to 32 in float32) and of several slabs of weights
-    (the direct build), on
-    each side of the bounds between builds (ops/em_kernels.py em_build); a
-    rerun gives the same bits."""
+    spread build), of five to eight (the owned build), of nine to 32 (the
+    strided build; beyond sixteen at one CTA an SM, on the walking layout
+    that CTA walks two row ranges, an odd count leaving the last CTA one)
+    and of several slabs of weights (the direct build), on each side of
+    the bounds between builds (ops/em_kernels.py em_build); a rerun gives
+    the same bits."""
     logL, counts, alpha, _ = _problem(E, G, 37)
     if padded:
         logL, counts, alpha = _pad(logL, counts, alpha)

@@ -69,8 +69,10 @@ class _Launches(list):
 def _fake_card(monkeypatch, k6_ctas=2):
     """The CUDA calls of the K5 and K6 wrappers faked on the CPU: an H100's
     132 SMs, the *_info entries of K5's builds (3 CTAs an SM for rows of
-    one chunk, 2 for its wide builds: the fifth of six ints, the sixth the
-    build that em_build names) and of K6's
+    one chunk, 2 for its wide builds but 1 for the strided build beyond
+    8,192 columns: the fifth of seven ints, the sixth the build that
+    em_build names, the seventh the ranges a CTA walks, ranges_per_cta)
+    and of K6's
     (`k6_ctas`, the fourth of six; the sixth its chunk columns, 0 for rows
     of one chunk), and a library whose em_step and em_step_batch entries
     record the range count each launch takes (argument 7 of em_step's,
@@ -82,8 +84,10 @@ def _fake_card(monkeypatch, k6_ctas=2):
         wide = G > 512
         if entry == "em_step_f64_f64_info":
             build, tile = K.em_build(G, 8)
-            return (128, 0, tile, G, 2, K.EM_BUILDS.index(build)) if wide else \
-                (80, 0, 32, 512, 3, 0)
+            walk = K.ranges_per_cta(G, 8)  # the walking layout runs one CTA an SM
+            ctas = 1 if walk > 1 else 2
+            return (128, 0, tile, G, ctas, K.EM_BUILDS.index(build), walk) if wide else \
+                (80, 0, 32, 512, 3, 0, 1)
         assert entry == "em_step_batch_f64_f64_info" and n == 6
         return (128, 0, 10 if wide else 6, k6_ctas, 2, -(-G // 512) if wide else 0)
 
@@ -150,6 +154,63 @@ def test_k5_ranges_follow_k6_build(monkeypatch, k6_ctas, n, G):
     launched = _fake_card(monkeypatch, k6_ctas)
     _launch_both(792 * 4 * TILE, G)
     assert launched == [("em_step", n), ("em_step_batch", n)]
+
+
+@pytest.mark.parametrize("G", [9217, 10_240, 12_288, 13_313, 16_384])
+def test_k5_walks_two_ranges_beside_k6(monkeypatch, G):
+    """K5's float64 rows of 19 to 24 and 27 to 32 chunks run at one CTA an
+    SM that walks two row ranges (its info's fifth and seventh ints), so
+    K5's range slots an SM stay two and K5 and K6 (one float64 CTA an SM
+    there) share 264 ranges on an H100's 132 SMs, as at 8,192 columns and
+    on the direct widths between."""
+    launched = _fake_card(monkeypatch, k6_ctas=1)
+    info = K.kernel_info("f64_f64", G, 0)
+    assert (info["build"], info["ctas_per_sm"], info["ranges_per_cta"]) == ("strided", 1, 2)
+    _launch_both(792 * 4 * TILE, G)
+    assert launched == [("em_step", 264), ("em_step_batch", 264)]
+
+
+@pytest.mark.parametrize("G,walk,n", [(4096, 1, 132), (8192, 1, 132), (16_384, 2, 264)])
+def test_k5_range_slots_are_ctas_times_walk(monkeypatch, G, walk, n):
+    """K5's share of the range count is its CTAs an SM times the ranges a
+    CTA walks (ops/em_kernels.py ranges): a build at one CTA an SM that
+    walks one range a CTA would leave 132 ranges beside K6's one CTA an SM,
+    and so move K5's bits; the walking layout keeps 264."""
+    _fake_card(monkeypatch, k6_ctas=1)
+    info = dict(zip(K.K5_INFO, K.read_info("em_step_f64_f64_info", G, 0, len(K.K5_INFO))))
+    monkeypatch.setattr(K, "read_info", lambda entry, G, index, n: (
+        tuple(info[k] for k in K.K5_INFO[:4]) + (1, info["build"], walk)
+        if entry.startswith("em_step_f64") else (128, 0, 10, 1, 2, 8)))
+    assert K.ranges("f64_f64", 792 * 4 * TILE, G, torch.device("cuda", 0)) == n
+
+
+@pytest.mark.parametrize("E,n,walks", [
+    pytest.param(2 * TILE + 5, 3, [range(0, 2), range(2, 3)], id="odd"),
+    pytest.param(4 * TILE, 4, [range(0, 2), range(2, 4)], id="even"),
+    pytest.param(1, 1, [range(0, 1)], id="one")])
+def test_odd_range_count_walks_a_one_range_tail(monkeypatch, E, n, walks):
+    """Below a wave's tiles K5 takes one range a tile, so its count may be
+    odd; the walking layout's launch then gives its last CTA the one range
+    left (walk_ranges, em_step.cu launch_em_step), and the CTAs' ranges
+    cover the rows once, in order."""
+    launched = _fake_card(monkeypatch, k6_ctas=1)
+    _launch_both(E, 16_384, B=2)
+    assert launched == [("em_step", n), ("em_step_batch", n)]
+    assert K.walk_ranges(n, K.ranges_per_cta(16_384, 8)) == walks
+    bounds = range_bounds(E, TILE, n)
+    rows = [r for walk in walks for b in walk for r in range(*bounds[b])]
+    assert rows == list(range(E))
+
+
+@pytest.mark.parametrize("n,per_cta", [(264, 1), (264, 2), (3, 2), (1, 2), (7, 3)])
+def test_walk_ranges_cover_each_range_once(n, per_cta):
+    """walk_ranges: ceil(n / per_cta) CTAs, each a run of per_cta ranges
+    in order, the last those that are left; one range a CTA is the launch
+    of every build but the walking layout."""
+    walks = K.walk_ranges(n, per_cta)
+    assert len(walks) == -(-n // per_cta)
+    assert [b for w in walks for b in w] == list(range(n))
+    assert all(len(w) == per_cta for w in walks[:-1]) and 1 <= len(walks[-1]) <= per_cta
 
 
 @pytest.mark.parametrize("G", [512, 1024])

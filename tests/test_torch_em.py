@@ -94,11 +94,13 @@ def test_em_step_plain_matches_pallas(E, G, seed, padded):
 
 
 @pytest.mark.parametrize("E,G,seed", [(96, 256, 21), (50, 33, 22), (40, 600, 23),
-                                      (24, 1100, 24)])
+                                      (24, 1100, 24), (37, 16_385, 25), (37, 32_768, 26)])
 def test_em_step_plain_f64_matches_jnp_estep(E, G, seed):
     """Float64 K5 (the emgpu default on CUDA) against the JAX package's
     float64 E-step (impl="xla"), to float64 round-off (1e-12), at widths
-    the Pallas grid would not take and with theta zero on some groups."""
+    the Pallas grid would not take and with theta zero on some groups, up
+    to rows that K5 runs on its direct build (33 chunks, the last of one
+    column, and 64 whole chunks)."""
     logL, counts, _, _ = _problem(E, G, seed)
     logL, counts = logL.astype(np.float64), counts.astype(np.float64)
     lse_prev, logtheta = _step_inputs(logL, counts, seed)
@@ -234,11 +236,14 @@ def test_em_build_by_width(itemsize):
     19 to 24 and 27 to 32 (9,217 to 12,288 and 13,313 to 16,384 columns),
     on the walking layout (whose CTA walks two row ranges) in float32 at 17
     and 18 chunks and in float64, and the direct build with a tile of
-    weights for every warp at the other widths."""
+    weights for every warp at the other widths, every row beyond 16,384
+    columns among them."""
     budget = K._budget(2, 0, K.H100_SMEM)
     for G in list(range(513, 4200, 7)) + [1536, 1537, 2048, 2049, 4096, 4097, 8192, 8193,
-                                          8705, 9216, 9217, 12_000, 16_384, 16_385, 29_000,
-                                          30_000]:
+                                          8705, 9216, 9217, 12_000, 16_384, 16_385, 19_968,
+                                          19_969, 20_000, 24_576, 24_577, 25_088, 28_160,
+                                          28_161, 28_164, 29_000, 30_000, 30_001, 32_768,
+                                          32_769, 40_000]:
         build, tile = K.em_build(G, itemsize)
         if G <= 1024:
             assert build == "pair" and tile >= K.WARPS, G
@@ -275,10 +280,15 @@ def test_em_build_by_width(itemsize):
     (4097, 8, ("strided", 1)), (4097, 4, ("strided", 1)), (8192, 8, ("strided", 1)),
     (8192, 4, ("strided", 1)), (8193, 8, ("direct", 8)), (8193, 4, ("strided", 1)),
     (9216, 4, ("strided", 1)), (9217, 4, ("strided", 1)), (16_384, 8, ("strided", 1)),
-    (16_384, 4, ("strided", 1)), (16_385, 4, ("direct", 8)),
-    (30_000, 4, ("direct", 8)), (9216, 8, ("direct", 8)), (9217, 8, ("strided", 1)),
+    (16_384, 4, ("strided", 1)), (16_385, 4, ("direct", 8)), (24_576, 4, ("direct", 8)),
+    (24_577, 4, ("direct", 8)), (30_000, 4, ("direct", 8)), (30_001, 4, ("direct", 8)),
+    (32_768, 4, ("direct", 8)), (32_769, 4, ("direct", 8)),
+    (9216, 8, ("direct", 8)), (9217, 8, ("strided", 1)),
     (12_288, 8, ("strided", 1)), (12_289, 8, ("direct", 8)), (13_312, 8, ("direct", 8)),
-    (13_313, 8, ("strided", 1)), (16_385, 8, ("direct", 8))])
+    (13_313, 8, ("strided", 1)), (16_385, 8, ("direct", 8)), (19_968, 8, ("direct", 8)),
+    (19_969, 8, ("direct", 8)), (24_576, 8, ("direct", 8)), (24_577, 8, ("direct", 8)),
+    (28_160, 8, ("direct", 8)), (28_164, 8, ("direct", 8)), (32_767, 8, ("direct", 8)),
+    (32_768, 8, ("direct", 8)), (32_769, 8, ("direct", 8))])
 def test_em_build_pins(G, itemsize, want):
     """The builds and tiles at the widths the card's checks run (phase 3,
     test_cuda_em_kernel_matches_plain), as em_step.cu em_plan picks them
@@ -289,12 +299,15 @@ def test_em_build_pins(G, itemsize, want):
 @pytest.mark.parametrize("G,itemsize,walk", [
     (512, 8, 1), (1024, 4, 1), (8192, 8, 1), (8192, 4, 1), (8193, 8, 1), (8193, 4, 2),
     (9216, 4, 2), (9217, 4, 1), (9217, 8, 2), (12_288, 8, 2), (12_289, 8, 1),
-    (13_312, 8, 1), (13_313, 8, 2), (16_384, 8, 2), (16_384, 4, 1), (16_385, 8, 1)])
+    (13_312, 8, 1), (13_313, 8, 2), (16_384, 8, 2), (16_384, 4, 1), (16_385, 8, 1),
+    (16_385, 4, 1), (19_969, 8, 1), (24_576, 8, 1), (25_088, 8, 1), (32_768, 8, 1),
+    (32_768, 4, 1), (32_769, 8, 1), (32_769, 4, 1)])
 def test_ranges_per_cta_pins(G, itemsize, walk):
     """The row ranges a CTA of K5 walks (em_step.cu em_plan, the seventh
     int of its info): two on the strided build's walking layout (float64
     rows of 19 to 24 and 27 to 32 chunks, float32 of 17 and 18), whose one
-    CTA an SM then fills two range slots, and one on every other build."""
+    CTA an SM then fills two range slots, and one on every other build (the
+    direct build beyond 16,384 columns too)."""
     assert K.ranges_per_cta(G, itemsize) == walk
 
 
@@ -367,6 +380,10 @@ def cuda_device():
     (301, 12_288, False), (961, 12_288, False), (65, 12_288, False),
     (9000, 12_288, False), (53, 9216, False), (37, 12_289, False),
     (37, 13_312, False), (53, 13_313, False), (65, 16_384, False), (9000, 16_384, False),
+    # The direct build beyond 16,384 columns: one-cell loads and a
+    # one-column last chunk, E below the range count, 64 whole chunks and
+    # one column past them.
+    (37, 24_577, False), (19, 32_768, False), (19, 32_769, False), (3001, 32_768, False),
 ])
 @pytest.mark.parametrize("dtype", list(K.INSTANTIATIONS))
 def test_cuda_em_kernel_matches_plain(cuda_device, dtype, E, G, padded):

@@ -143,14 +143,18 @@ def test_k5_and_k6_take_the_same_ranges(monkeypatch):
     pytest.param(1, 396, 4, id="1-396"), pytest.param(4, 1584, 4, id="4-1584"),
     pytest.param(2, 264, 1024, id="G1024-2-264"), pytest.param(1, 264, 1024, id="G1024-1-264"),
     pytest.param(3, 792, 1537, id="G1537-3-792"), pytest.param(4, 528, 4096, id="G4096-4-528"),
-    pytest.param(1, 264, 8192, id="G8192-1-264"), pytest.param(1, 264, 16_384, id="G16384-1-264")])
+    pytest.param(1, 264, 8192, id="G8192-1-264"), pytest.param(1, 264, 16_384, id="G16384-1-264"),
+    pytest.param(1, 264, 16_385, id="G16385-1-264"), pytest.param(1, 264, 24_576, id="G24576-1-264"),
+    pytest.param(1, 264, 32_768, id="G32768-1-264"),
+    pytest.param(2, 264, 32_768, id="G32768-2-264")])
 def test_k5_ranges_follow_k6_build(monkeypatch, k6_ctas, n, G):
     """K5's numerics follow K6's build: K5's range count is lcm(K5's CTAs
     an SM, K6's) x 132, 3 for K5's one-chunk build and 2 for its wide builds
     (G > 512), so a change to the CTAs an SM of the K6 build that
     runs at G (em_step_batch.cu RepBuild::ctas, or WideBuild::ctas beyond
     512 columns) moves K5's ranges there, and its bits by round-off; the
-    wide build's two (float32) or one (float64) keep K5's 264."""
+    wide build's two (float32) or one (float64) keep K5's 264, up to
+    the direct build's rows of 64 chunks."""
     launched = _fake_card(monkeypatch, k6_ctas)
     _launch_both(792 * 4 * TILE, G)
     assert launched == [("em_step", n), ("em_step_batch", n)]

@@ -1,0 +1,9 @@
+"""k1_roofline (%): the least time of K1's live launches in the traced
+window over the device time of all its launches (trace.roofline_share;
+its work per instantiation in kernels/k1_*.json)."""
+
+from benchmark import trace
+
+
+def read(run):
+    return trace.roofline_share(run, "k1")

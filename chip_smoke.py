@@ -62,14 +62,16 @@ Phases (each raises on failure, and the script exits non-zero):
    community likelihood (2,301,952 ECs x 512 groups) packed in float32 and
    fitted with fit_result("rcgcpu", tol=1e-6) with escalation; theta held
    against a float64 fit of the same problem; iterations and objective
-   beside the parent tree's (PARENT); K1/K2 launches by instantiation, and
-   as live and skipped (a frozen state's steps inside a chunk); the idle
+   beside the parent tree's (PARENT); the iterations by phase from
+   FitResult.stats (float32, blind, float64 polish, rolled back), K1/K2
+   launches as live and skipped (a frozen state's steps inside a chunk),
+   K1's against the enqueued iterations; the idle
    share over one chunk of 32 float32 iterations; then one 64-step chunk
    of the serial rcg (float32, then blind float32 rows in float64) with
    every device read an error (torch.cuda.set_sync_debug_mode), timed;
 6. EM on the same community with the emgpu default policy (float64
    matrix, tol 1e-6), iterations and objective beside the parent's, K5
-   launches as live and skipped, K5's time a pass beside the iteration's,
+   launches as live and skipped (FitResult.stats), K5's time a pass beside the iteration's,
    the idle share over one chunk of 32 iterations, one 64-step chunk with
    every device read an error, then 20
    iterations through K5 and through the plain version from the same init,
@@ -83,7 +85,11 @@ Phases (each raises on failure, and the script exits non-zero):
    is above the roofline, T1-T3, K1 and K2 launched; the `full` row (one
    chunk of iterations) against K1 + K2;
 9. --trace-dir: the golden CLI on the card writes a torch.profiler trace
-   that names the K1 and K2 kernels;
+   that names the K1 and K2 kernels and holds the fit's msweep::rcg.fit,
+   chunk and read spans on the host's timeline (none on the device's):
+   a read span for each host read the CLI's log counts, every chunk and
+   read inside the fit, no read inside a chunk, and every device-to-host
+   copy the fit launches inside a read span;
 10. EC-axis sharding on the one card: the phase-5 fit on two shards against
    the float64 fit and phase 5; EM and the B = 8 bootstrap on three shards
    at the golden size against unsharded fits (the rcg and the EM
@@ -1257,34 +1263,28 @@ def phase_full(torch, lik, build_s):
     counters = (K.rcg_norm_kernel, K.rcg_update_kernel, K.rcg_norm_plain, K.rcg_update_plain)
     for fn in counters:
         fn.launches = 0
-    for fn in counters[:2]:
-        fn.by_suffix = dict.fromkeys(fn.by_suffix, 0)
-    buf = io.StringIO()
     t = time.perf_counter()
-    with contextlib.redirect_stderr(buf):
-        res = fit_result(p32, "rcgcpu", tol=1e-6, max_iters=5000, verbose=True)
-        theta32 = res.theta.cpu().numpy()
+    res = fit_result(p32, "rcgcpu", tol=1e-6, max_iters=5000)
+    theta32 = res.theta.cpu().numpy()
     fit_s = time.perf_counter() - t
     launches = {fn.__name__: fn.launches for fn in counters}
-    by_suffix = {fn.__name__: dict(fn.by_suffix) for fn in counters[:2]}
     peak = torch.cuda.max_memory_allocated()
 
-    log = buf.getvalue()
-    floor = re.search(r"numerical floor at iter (\d+)", log)
-    n_f32 = int(floor.group(1)) if floor else res.n_iters
-    windows = [int(i) for i in re.findall(r"iter (\d+)  f64 bound", log)]
-    n_blind = (windows[-1] - n_f32) if windows else 0
+    st = res.stats
+    n_f32 = st.main
     _say(f"  build {build_s:.3f} s, pack {pack_s:.3f} s, fit {fit_s:.3f} s")
-    _say(f"  iterations {res.n_iters} ({n_f32} float32 + {res.n_iters - n_f32} escalated: "
-         f"{n_blind} blind float32 in {len(windows)} supervised windows, "
-         f"{res.n_iters - n_f32 - n_blind} float64 polish), {res.n_iters / fit_s:.3f} it/s, "
-         f"peak device memory {peak / 2**30:.3f} GiB, launches {launches}")
-    _say(f"  K1/K2 launches by instantiation (matrix_compute): {by_suffix}")
-    # Each step of a chunk launches K1 and K2 once; a step prints its
-    # history line when its state was live.
+    _say(f"  iterations {res.n_iters} ({st.main} float32 + {res.n_iters - st.main} escalated: "
+         f"{st.blind} blind float32 in {st.windows} supervised windows, {st.rolled_back} "
+         f"rolled back, {st.polish} float64 polish), {res.n_iters / fit_s:.3f} it/s, "
+         f"peak device memory {peak / 2**30:.3f} GiB, launches {launches}; {st.enqueued} "
+         f"iterations enqueued, {st.host_reads} host reads")
+    # Each step of a chunk launches K1 and K2 once; the steps of a state
+    # already done skip their rows, those of a rolled-back window ran.
     k1, k2 = launches["rcg_norm_kernel"], launches["rcg_update_kernel"]
-    skipped = k1 - len(re.findall(r"iter \d+  bound", log))
+    skipped = st.enqueued - res.n_iters - st.rolled_back
     _say(f"  launches: K1 {_live_and_skipped(k1, skipped)}, K2 {_live_and_skipped(k2, skipped)}")
+    if k1 != st.enqueued:
+        raise AssertionError(f"K1 launched {k1} times for {st.enqueued} enqueued iterations")
     _beside_parent("rcg", res.n_iters, res.objective, "the fit")
     if launches["rcg_norm_kernel"] == 0 or launches["rcg_update_kernel"] == 0:
         raise AssertionError(f"the main path did not launch both kernels: {launches}")
@@ -1372,13 +1372,17 @@ def phase_em(torch, lik):
     peak = torch.cuda.max_memory_allocated()
     _say(f"  float64: {res.n_iters} iterations, fit {fit_s:.3f} s, "
          f"{res.n_iters / fit_s:.3f} it/s, peak device memory {peak / 2**30:.3f} GiB, "
-         f"launches {launches}")
+         f"launches {launches}; {res.stats.enqueued} iterations enqueued, "
+         f"{res.stats.host_reads} host reads")
     _em_deltas(buf.getvalue(), tol=1e-6)
     # K5 runs once for the init, once a step of a chunk and once for the
-    # pseudocounts; a step prints its history line when its state was live.
+    # pseudocounts; the steps of a state already done skip their rows.
     k5 = launches["em_step_kernel"]
-    skipped = k5 - 2 - len(re.findall(r"iter \d+  objective", buf.getvalue()))
+    skipped = res.stats.enqueued - res.n_iters
     _say(f"  launches: K5 {_live_and_skipped(k5, skipped)}")
+    if k5 != res.stats.enqueued + 2:
+        raise AssertionError(f"K5 launched {k5} times for {res.stats.enqueued} enqueued "
+                             "iterations, the init and the pseudocounts")
     _beside_parent("em", res.n_iters, res.objective, "the fit")
     if launches["em_step_kernel"] == 0 or launches["em_step_plain"]:
         raise AssertionError(f"EM did not run on K5 alone: {launches}")
@@ -1536,6 +1540,52 @@ def phase_trace(torch):
                      for k in found for n in found[k]))
     if not all(found.values()):
         raise AssertionError(f"the trace does not name K1 and K2: {sorted(kernels)[:20]}")
+    _trace_spans(events, log)
+
+
+def _trace_spans(events, log):
+    """The fit's msweep:: spans in a --trace-dir trace: the fit span, its
+    chunk spans and a read span for each host read that the CLI's
+    "optimizer finished" line counts, all on the host's timeline inside
+    the fit span, none copied onto the device's, no read inside a chunk,
+    and every device-to-host copy that the fit launches launched inside a
+    read span."""
+    spans = {}
+    for e in events:
+        if e.get("name", "").startswith("msweep::") and e.get("ph") == "X":
+            spans.setdefault((e["cat"], e["name"]), []).append((e["ts"], e["ts"] + e["dur"]))
+    _say("  spans: " + ", ".join(f"{n} ({cat}) x{len(v)}" for (cat, n), v in sorted(spans.items())))
+    fit = spans.get(("cpu_op", "msweep::rcg.fit"), [])
+    reads = spans.get(("cpu_op", "msweep::read"), [])
+    chunks = [r for (cat, n), v in spans.items() if n.startswith("msweep::rcg.chunk.")
+              for r in v]
+    on_device = [n for cat, n in spans if cat != "cpu_op"]
+    host_reads = re.search(r"(\d+) enqueued, (\d+) host reads", log)
+    if (len(fit) != 1 or not chunks or on_device or host_reads is None
+            or len(reads) != int(host_reads.group(2))):
+        raise AssertionError(f"the trace's spans: {sorted(spans)}, host reads "
+                             f"{host_reads and host_reads.group(2)}")
+
+    def inside(t, ranges):
+        return any(a <= t <= b for a, b in ranges)
+
+    if not all(inside(a, fit) and inside(b, fit) for v in spans.values() for a, b in v):
+        raise AssertionError("a msweep:: span lies outside the fit span")
+    if any(ca < ra < cb for ca, cb in chunks for ra, _ in reads):
+        raise AssertionError("a msweep::read span starts inside a chunk span")
+
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    copies = [launched.get(e["args"].get("correlation")) for e in events
+              if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    in_fit = [t for t in copies if t is not None and inside(t, fit)]
+    outside = [t for t in in_fit if not inside(t, reads)]
+    _say(f"  device-to-host copies: {len(copies)}, {len(in_fit)} launched in the fit, "
+         f"{len(outside)} of them outside a read span; {len(reads)} read spans")
+    if not in_fit:
+        raise AssertionError("the trace shows no device-to-host copy launched in the fit")
+    if outside:
+        raise AssertionError("a device-to-host copy of the fit lies outside a msweep::read span")
 
 
 def _golden_data():
@@ -1609,18 +1659,15 @@ def phase_shard(torch, lik, full):
     p2 = pack_problem(lik, dtype=torch.float32, device=dev, devices=[dev, dev])
     for fn in counters:
         fn.launches = 0
-    buf = io.StringIO()
     t = time.perf_counter()
-    with contextlib.redirect_stderr(buf):
-        res = fit_result(p2, "rcgcpu", tol=1e-6, max_iters=5000, verbose=True)
-        theta = res.theta.cpu().numpy()
+    res = fit_result(p2, "rcgcpu", tol=1e-6, max_iters=5000)
+    theta = res.theta.cpu().numpy()
     fit_s = time.perf_counter() - t
     launches = {fn.__name__: fn.launches for fn in counters}
-    floor = re.search(r"numerical floor at iter (\d+)", buf.getvalue())
     d64 = float(np.abs(theta - full["theta64"]).max())
     d5 = float(np.abs(theta - full["theta32"]).max())
     _say(f"  2 shards {p2.rows}, float32 + escalation: {res.n_iters} iterations "
-         f"({floor.group(1) if floor else res.n_iters} float32) in {fit_s:.3f} s; phase 5 "
+         f"({res.stats.main} float32) in {fit_s:.3f} s; phase 5 "
          f"unsharded: {full['iters']} ({full['n_f32']} float32) in {full['fit_s']:.3f} s; "
          f"max |theta - theta64| {d64:.3e} (bar 5e-5), max |theta - phase 5| {d5:.3e}; "
          f"launches {launches}")

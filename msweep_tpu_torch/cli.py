@@ -19,7 +19,7 @@ starts one process per device with --distributed-coordinator host:port,
 --distributed-nprocs and --distributed-process-id; process p runs on
 cuda:{p % device_count} over NCCL (gloo with --backend cpu), holds one
 row range, and process 0 alone logs and writes.  --trace-dir writes a
-torch.profiler trace of the fit.
+torch.profiler trace of the fit, with the fit's msweep:: spans.
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--shards", type=int, default=0, help="(extension) shard the EC axis over this many devices (0 = all available).")
     x.add_argument("--write-checkpoint", help="(extension) save the built likelihood problem as a full-precision npz checkpoint.")
     x.add_argument("--read-checkpoint", help="(extension) resume from an npz checkpoint, skipping alignment ingestion and likelihood build.")
-    x.add_argument("--trace-dir", help="(extension) write a torch.profiler trace of the estimation to this directory.")
+    x.add_argument("--trace-dir", help="(extension) write a torch.profiler trace of the estimation to this directory; it carries the fit's msweep:: spans (chunks, host reads) beside the device's kernels.")
     x.add_argument(
         "--samples-manifest",
         help="(extension) batch mode: TSV of `output_prefix<TAB>aln1[<TAB>aln2]` "
@@ -399,9 +399,12 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
                 theta = res.theta.cpu().numpy()  # waits for the device
             t_fit = time.time() - t_fit
             n_it = max(res.n_iters, 1)
+            st = res.stats
             log(
                 f"  optimizer finished after {res.n_iters} iterations "
-                f"({t_fit:.2f}s, {n_it / t_fit:.2f} it/s)"
+                f"({t_fit:.2f}s, {n_it / t_fit:.2f} it/s): {st.main} main, {st.blind} blind "
+                f"in {st.windows} windows ({st.rolled_back} rolled back), {st.polish} polish; "
+                f"{st.enqueued} enqueued, {st.host_reads} host reads"
             )
             if args.trace_dir:
                 log(f"  wrote profiler trace to {args.trace_dir}")

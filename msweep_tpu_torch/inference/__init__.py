@@ -7,11 +7,12 @@ from .mixture import bound_const, mixture_components
 from .pack import DeviceProblem, pack_problem, problem_from_numpy
 from .rate import dirichlet_kld, dirichlet_kld_from_pseudocounts, rates_from_log_kld
 from .rcg import fit_rcg, fit_rcg_batch, fit_rcg_result
-from .result import FitResult
+from .result import FitResult, FitStats
 
 __all__ = [
     "DeviceProblem",
     "FitResult",
+    "FitStats",
     "bound_const",
     "dirichlet_kld",
     "dirichlet_kld_from_pseudocounts",

@@ -18,7 +18,9 @@ torch.where, as in msweep_tpu/inference/em.py:144-167), and K5 takes the
 done flag by pointer, so a chunk of iterations is enqueued with no host
 read: a state that is done passes through the rest of its chunk unchanged
 (the JAX package's lax.cond freeze) and K5 skips its rows for it; the host
-reads `done` once per chunk.  The init is one K5 pass too (its ddot
+reads `done` once per chunk, through the fit's Tally (inference/result.py),
+which counts the reads and the enqueued iterations and opens the spans.
+The init is one K5 pass too (its ddot
 against lse_prev = 0 is the data term of J), so on a CUDA device every
 pass over logL of an iteration is a kernel launch.
 
@@ -52,7 +54,7 @@ from ..utils import NEG
 from ..ops.em_batch_kernels import em_step_batch
 from ..ops.em_kernels import em_step
 from .pack import DeviceProblem, auto_chunk
-from .result import FitResult, no_groups_batch, no_groups_fit
+from .result import FitResult, Tally, no_groups_batch, no_groups_fit, span
 
 F64 = torch.float64
 
@@ -180,12 +182,13 @@ def _em_chunk(state: EMState, prob: DeviceProblem, counts: list, am1, *, length:
     return state, hist
 
 
-def _print_chunk_history(it0: int, hist) -> None:
+def _print_chunk_history(it0: int, hist, tally: Tally) -> None:
     """The chunk's active steps (a prefix: a done state freezes), read
     from the device in one transfer."""
     if not hist:
         return
-    rows = torch.stack([torch.stack([a.to(F64), o]) for a, o in hist]).tolist()
+    rows = tally.read(torch.Tensor.tolist, torch.stack([torch.stack([a.to(F64), o])
+                                                        for a, o in hist]))
     for k, (active, objective) in enumerate(rows):
         if not active:
             break
@@ -193,19 +196,20 @@ def _print_chunk_history(it0: int, hist) -> None:
 
 
 def _run_em(problem: DeviceProblem, counts: list, *, tol: float, max_iters: int,
-            verbose: bool, chunk: int) -> EMState:
+            verbose: bool, chunk: int, tally: Tally) -> EMState:
     """The EM loop, reading `done` once per chunk (never in bench mode,
     tol < 0); counts holds each shard's counts."""
     am1 = problem.alpha - 1.0
     state = _em_init(problem, counts, am1)
     it = 0
     while it < max_iters:
-        state, hist = _em_chunk(state, problem, counts, am1, length=chunk, tol=tol,
-                                max_it=max_iters)
+        with tally.chunk("em.chunk", chunk):
+            state, hist = _em_chunk(state, problem, counts, am1, length=chunk, tol=tol,
+                                    max_it=max_iters)
         if verbose:
-            _print_chunk_history(it, hist)
+            _print_chunk_history(it, hist, tally)
         it += chunk
-        if tol >= 0 and bool(state.done):
+        if tol >= 0 and tally.read(bool, state.done):
             break
     return state
 
@@ -256,23 +260,28 @@ def fit_em_result(
     over the same logL (one bootstrap replicate); `chunk` is the number
     of iterations between host convergence checks (auto_chunk).  A
     problem with no groups returns no_groups_fit."""
-    problem = problem.with_counts(counts)
-    if problem.n_groups == 0:
-        return no_groups_fit(problem)
-    if chunk is None:
-        chunk = auto_chunk(problem)
-    c = [n for _, n in problem.shards]
-    state = _run_em(problem, c, tol=float(tol), max_iters=int(max_iters),
-                    verbose=bool(verbose), chunk=chunk)
-    w = _em_state_pseudocounts(problem, state, c)
-    return FitResult(
-        theta=w / problem.row_sum(c),
-        n_iters=int(state.it),
-        objective=float(state.objective),
-        pseudocounts=w,
-        _gamma_fn=lambda: problem.cat([_em_final(L, state.theta.to(L.device))
-                                       for L, _ in problem.shards]),
-    )
+    with span("em.fit"):
+        problem = problem.with_counts(counts)
+        if problem.n_groups == 0:
+            return no_groups_fit(problem)
+        if chunk is None:
+            chunk = auto_chunk(problem)
+        c = [n for _, n in problem.shards]
+        tally = Tally()
+        state = _run_em(problem, c, tol=float(tol), max_iters=int(max_iters),
+                        verbose=bool(verbose), chunk=chunk, tally=tally)
+        w = _em_state_pseudocounts(problem, state, c)
+        theta = w / problem.row_sum(c)
+        n_iters = tally.read(int, state.it)
+        return FitResult(
+            theta=theta,
+            n_iters=n_iters,
+            objective=tally.read(float, state.objective),
+            pseudocounts=w,
+            _gamma_fn=lambda: problem.cat([_em_final(L, state.theta.to(L.device))
+                                           for L, _ in problem.shards]),
+            stats=tally.stats(n_iters),
+        )
 
 
 # ---------------------------------------------------------------------------

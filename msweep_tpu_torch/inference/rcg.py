@@ -34,7 +34,9 @@ per-iteration criterion.  A supervision window that lowers the bound is
 rolled back and the fit continues in float64.  The tail reads the device
 where the JAX package does: the iteration count, the last delta and the
 re-anchored bound once at the floor, the count and the float64 bound once
-per window, `done` once per chunk of the polish.
+per window, `done` once per chunk of the polish.  Every read goes through
+the fit's Tally (inference/result.py), which counts it and the enqueued
+iterations for FitResult.stats and opens the fit's profiler spans.
 
 EC-axis sharding (inference/pack.py): every pass runs its kernel on each
 shard of the problem and DeviceProblem.reduce adds the float64 partials
@@ -67,7 +69,7 @@ import torch
 from ..ops.rcg_batch_kernels import rcg_norm_batch, rcg_update_batch
 from ..ops.rcg_kernels import materialize_gamma, rcg_bound_stats, rcg_norm, rcg_update
 from .pack import DeviceProblem, auto_chunk
-from .result import FitResult, no_groups_batch, no_groups_fit
+from .result import FitResult, Tally, no_groups_batch, no_groups_fit, span
 
 F64 = torch.float64
 
@@ -229,12 +231,13 @@ def _rcg_chunk(state: RCGImplicitState, prob: DeviceProblem, *, length: int, tol
     return state, hist
 
 
-def _print_chunk_history(it0: int, hist) -> None:
+def _print_chunk_history(it0: int, hist, tally: Tally) -> None:
     """The chunk's active steps (a prefix: a done state freezes), read
     from the device in one transfer."""
     if not hist:
         return
-    rows = torch.stack([torch.stack([a.to(F64), b, r.to(F64)]) for a, b, r in hist]).tolist()
+    rows = tally.read(torch.Tensor.tolist,
+                      torch.stack([torch.stack([a.to(F64), b, r.to(F64)]) for a, b, r in hist]))
     for k, (active, bound, reset) in enumerate(rows):
         if not active:
             break
@@ -242,7 +245,7 @@ def _print_chunk_history(it0: int, hist) -> None:
 
 
 def _run_rcg(prob: DeviceProblem, *, tol: float, max_iters: int, verbose: bool,
-             chunk: int, refine: bool | str = True) -> RCGImplicitState:
+             chunk: int, tally: Tally, refine: bool | str = True) -> RCGImplicitState:
     """The optimizer loop in the matrix's dtype, then (float32 matrices,
     `refine`) the escalation past the float32 floor; refine="exact" takes
     the float64 tail without blind windows.  The host reads `done` once per
@@ -252,13 +255,14 @@ def _run_rcg(prob: DeviceProblem, *, tol: float, max_iters: int, verbose: bool,
     it = 0
     done = False
     while it < max_iters:
-        state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
-                                 compute_dtype=prob.dtype, max_it=max_iters)
+        with tally.chunk("rcg.chunk.main", chunk):
+            state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
+                                     compute_dtype=prob.dtype, max_it=max_iters)
         if verbose:
-            _print_chunk_history(it, hist)
+            _print_chunk_history(it, hist, tally)
         it += chunk
         if tol >= 0:
-            done = bool(state.done)
+            done = tally.read(bool, state.done)
             if done:
                 break
 
@@ -267,15 +271,16 @@ def _run_rcg(prob: DeviceProblem, *, tol: float, max_iters: int, verbose: bool,
         and tol >= 0
         and prob.dtype == torch.float32
         and done
-        and not (0 <= float(state.delta) < tol)  # floor stop, not true tol
+        and not (0 <= tally.read(float, state.delta) < tol)  # floor stop, not true tol
     ):
         state, it = _escalate(state, prob, it=it, max_iters=max_iters, tol=tol,
-                              chunk=chunk, verbose=verbose, exact=(refine == "exact"))
+                              chunk=chunk, verbose=verbose, tally=tally,
+                              exact=(refine == "exact"))
     return state
 
 
 def _escalate(state: RCGImplicitState, prob: DeviceProblem, *, it: int, max_iters: int,
-              tol: float, chunk: int, verbose: bool, exact: bool = False):
+              tol: float, chunk: int, verbose: bool, tally: Tally, exact: bool = False):
     """Past-the-floor refinement to float64 convergence: blind float32
     windows supervised by the exact float64 bound, then a float64 polish
     (or a float64 fallback after a rolled-back window).  `exact` skips the
@@ -284,8 +289,9 @@ def _escalate(state: RCGImplicitState, prob: DeviceProblem, *, it: int, max_iter
     # rounding which, through lgamma at N ~ 1e4, injects O(1) spurious
     # deltas, enough to make the first honest step look like a decrease.
     bound0, n64 = _bound_at(prob, state, F64)
-    it_f, d0, bound0_f = torch.stack([state.it.to(F64), state.delta, bound0]).tolist()
-    state_it = int(it_f)
+    it_f, d0, bound0_f = tally.read(torch.Tensor.tolist,
+                                    torch.stack([state.it.to(F64), state.delta, bound0]))
+    state_it = tally.anchor = int(it_f)
     if verbose:
         print(
             f"  f32 numerical floor at iter {state_it} (last accepted delta "
@@ -300,27 +306,29 @@ def _escalate(state: RCGImplicitState, prob: DeviceProblem, *, it: int, max_iter
 
     if not exact:
         state, it = _blind_windows(state, prob, bound0_f, d0, state_it, it=it,
-                                   max_iters=max_iters, tol=tol, chunk=chunk, verbose=verbose)
-        if it >= max_iters or bool(state.done):
+                                   max_iters=max_iters, tol=tol, chunk=chunk, verbose=verbose,
+                                   tally=tally)
+        if it >= max_iters or tally.read(bool, state.done):
             return state, it
         # Float64 polish after blind convergence, or the full fallback
         # after a rollback.  Momentum restarts: the blind phase's noisy
         # direction costs iterations in the exact tail.
         state = replace(state, just_reset=yes, oldnorm=one)
     while it < max_iters:
-        state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol, compute_dtype=F64,
-                                 max_it=max_iters)
+        with tally.chunk("rcg.chunk.polish", chunk):
+            state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol, compute_dtype=F64,
+                                     max_it=max_iters)
         if verbose:
-            _print_chunk_history(it, hist)
+            _print_chunk_history(it, hist, tally)
         it += chunk
-        if bool(state.done):
+        if tally.read(bool, state.done):
             break
     return state, it
 
 
 def _blind_windows(state: RCGImplicitState, prob: DeviceProblem, bound0: float, d0: float,
                    state_it: int, *, it: int, max_iters: int, tol: float, chunk: int,
-                   verbose: bool):
+                   verbose: bool, tally: Tally):
     """Blind float32 windows of `chunk` steps, each checked by one exact
     float64 bound pass, until the supervised gain per step drops below
     tol; a window that lowers the bound is rolled back.  bound0, d0 and
@@ -330,23 +338,26 @@ def _blind_windows(state: RCGImplicitState, prob: DeviceProblem, bound0: float, 
     bound_prev = bound0
     while it < max_iters:
         ckpt, ckpt_it = state, state_it
-        state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
-                                 compute_dtype=prob.dtype, max_it=max_iters,
-                                 blind_tau=tau)
+        with tally.chunk("rcg.chunk.blind", chunk):
+            state, hist = _rcg_chunk(state, prob, length=chunk, tol=tol,
+                                     compute_dtype=prob.dtype, max_it=max_iters,
+                                     blind_tau=tau)
         if verbose:
-            _print_chunk_history(it, hist)
+            _print_chunk_history(it, hist, tally)
         it += chunk
-        state_it = int(state.it)
+        state_it = tally.read(int, state.it)
         steps = state_it - ckpt_it
         if steps == 0:
             break  # max_it freeze
         bound_t, n64 = _bound_at(prob, state, F64)
-        bound_now = float(bound_t)
+        tally.counts["windows"] += 1
+        bound_now = tally.read(float, bound_t)
         davg = (bound_now - bound_prev) / steps
         if bound_now < bound_prev:
             # the blind window went downhill: roll back, go exact
             state = ckpt
             it -= chunk
+            tally.counts["rolled_back"] += steps
             if verbose:
                 print(
                     f"  blind window decreased the bound by {bound_prev - bound_now:.3e}; "
@@ -356,6 +367,7 @@ def _blind_windows(state: RCGImplicitState, prob: DeviceProblem, bound0: float, 
             break
         state = replace(state, n_counts=n64, bound=bound_t,
                         delta=torch.full_like(bound_t, davg))
+        tally.counts["blind"] = state_it - tally.anchor
         if verbose:
             print(f"  iter {state_it}  f64 bound {bound_now}  (avg delta/iter {davg:.3e})",
                   file=sys.stderr)
@@ -406,22 +418,27 @@ def fit_rcg_result(
     then, as in the JAX package, so the bound differs from that of
     pack_problem(lik, counts=counts) by the two constants' difference.  A
     problem with no groups returns no_groups_fit."""
-    problem = problem.with_counts(counts)
-    if problem.n_groups == 0:
-        return no_groups_fit(problem)
-    if chunk is None:
-        chunk = auto_chunk(problem)
-    state = _run_rcg(problem, tol=float(tol), max_iters=int(max_iters),
-                     verbose=bool(verbose), chunk=chunk, refine=refine)
-    return FitResult(
-        theta=_state_theta(state, problem),
-        n_iters=int(state.it),
-        objective=float(state.bound),
-        pseudocounts=state.n_counts - problem.alpha,
-        _gamma_fn=lambda: problem.cat([
-            materialize_gamma(L, state.c.to(L.device), state.v.to(L.device))
-            for L, _ in problem.shards]),
-    )
+    with span("rcg.fit"):
+        problem = problem.with_counts(counts)
+        if problem.n_groups == 0:
+            return no_groups_fit(problem)
+        if chunk is None:
+            chunk = auto_chunk(problem)
+        tally = Tally()
+        state = _run_rcg(problem, tol=float(tol), max_iters=int(max_iters),
+                         verbose=bool(verbose), chunk=chunk, tally=tally, refine=refine)
+        theta = _state_theta(state, problem)
+        n_iters = tally.read(int, state.it)
+        return FitResult(
+            theta=theta,
+            n_iters=n_iters,
+            objective=tally.read(float, state.bound),
+            pseudocounts=state.n_counts - problem.alpha,
+            _gamma_fn=lambda: problem.cat([
+                materialize_gamma(L, state.c.to(L.device), state.v.to(L.device))
+                for L, _ in problem.shards]),
+            stats=tally.stats(n_iters),
+        )
 
 
 # ---------------------------------------------------------------------------

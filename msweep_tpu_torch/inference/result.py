@@ -1,18 +1,85 @@
 """Fit result with O(G) abundances and lazy gamma materialization
-(counterpart of msweep_tpu/inference/result.py).
+(counterpart of msweep_tpu/inference/result.py), and what a fit records
+of itself: its counts (FitStats) and its spans in a profiler trace.
 
 A plain abundance run only consumes theta; the (E, G) probability matrix
 is needed only for --write-probs / --print-probs / --bin-reads, so it is
 built only when `.gamma()` is called.
+
+Spans: the serial fits open named ranges ("msweep::rcg.fit",
+"msweep::em.chunk", "msweep::read", ...) that a torch.profiler trace
+records on the host's timeline, on the clock of the device's events; with
+no profiler active a range costs under a microsecond.  They are
+ranges of the function scope, as an aten operator's, not
+torch.profiler.record_function's user scope: the profiler copies a
+user-scope range onto the device's timeline (a CUDA-typed
+"gpu_user_annotation" spanning the kernels launched inside it), where a
+reader of device operations would take a whole chunk or fit for busy
+device time.  A torch without the function-scope class gets
+record_function's ranges instead.
 """
 
 from __future__ import annotations
 
 import math
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+
+try:
+    from torch._C._profiler import _RecordFunctionFast as _Range
+except ImportError:
+    from torch.profiler import record_function as _Range
+
+
+def span(name: str):
+    """The profiler range "msweep::<name>", a context manager."""
+    return _Range(f"msweep::{name}")
+
+
+@dataclass(frozen=True)
+class FitStats:
+    """Counts of one serial fit, worked out from values the host reads
+    anyway: main + blind + polish == n_iters.  An EM fit's iterations are
+    all `main`."""
+
+    main: int = 0  # iterations kept in the loop in the matrix's dtype
+    blind: int = 0  # blind float32 iterations kept in supervised windows
+    polish: int = 0  # float64 polish and fallback iterations
+    rolled_back: int = 0  # blind iterations discarded by a rollback
+    windows: int = 0  # supervision windows, each also a float64 bound pass
+    enqueued: int = 0  # iterations enqueued: the sum of the chunks' lengths
+    host_reads: int = 0  # device-to-host reads
+
+
+class Tally:
+    """The running counts of one serial fit on the host, frozen into its
+    FitStats by stats().  Every device-to-host read of the loops goes
+    through read(), every enqueued chunk through chunk(), so that each
+    opens its span and is counted."""
+
+    def __init__(self):
+        self.counts = Counter()  # FitStats's fields but main and polish, worked out at the end
+        self.anchor = None  # state.it where the escalation took over, read there
+
+    def read(self, convert: Callable[[torch.Tensor], Any], tensor: torch.Tensor):
+        """convert(tensor), one read of the device (bool, int, float or
+        torch.Tensor.tolist), in a "msweep::read" span."""
+        self.counts["host_reads"] += 1
+        with span("read"):
+            return convert(tensor)
+
+    def chunk(self, name: str, length: int):
+        """The span of one chunk of `length` iterations: the host's time to
+        enqueue it, its waits on a full launch queue included."""
+        self.counts["enqueued"] += length
+        return span(name)
+
+    def stats(self, n_iters: int) -> FitStats:
+        main = n_iters if self.anchor is None else self.anchor
+        return FitStats(main=main, polish=n_iters - main - self.counts["blind"], **self.counts)
 
 
 @dataclass(frozen=True)
@@ -22,6 +89,7 @@ class FitResult:
     objective: float  # final ELBO
     pseudocounts: Any  # (G,) a_g = sum_e c_e p_eg = theta * sum(c)
     _gamma_fn: Callable[[], Any]  # materializes the (E, G) log-probabilities
+    stats: FitStats = FitStats()
 
     def gamma(self):
         """The full (E, G) log-probability matrix (one pass over logL)."""

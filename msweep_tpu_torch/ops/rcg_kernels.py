@@ -19,8 +19,7 @@ Every public pass dispatches on the device of logL: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor launches the hand-written kernel
 (``msweep_tpu_torch/csrc``) or raises.  Each kernel wrapper and each plain
 version counts its launches in a ``launches`` attribute, so a run can show
-which one it went through; the kernel wrappers also count them by
-instantiation in ``by_suffix`` (e.g. ``{"f32_f32": 390, "f32_f64": 114, ...}``).
+which one it went through.
 
 The scalars c (K1) and c_old, c_new (K2) may be Python numbers or 0-d
 tensors; the passes round them to the compute dtype on the device and the
@@ -264,12 +263,10 @@ def rcg_norm_kernel(logL, counts, psi, c, v, *, compute_dtype, done=None):
         )
     _raise_on(rc, "rcg_norm")
     rcg_norm_kernel.launches += 1
-    rcg_norm_kernel.by_suffix[suffix] += 1
     return out[0]
 
 
 rcg_norm_kernel.launches = 0
-rcg_norm_kernel.by_suffix = dict.fromkeys(INSTANTIATIONS.values(), 0)
 
 
 def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None):
@@ -303,12 +300,10 @@ def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype
         )
     _raise_on(rc, "rcg_update")
     rcg_update_kernel.launches += 1
-    rcg_update_kernel.by_suffix[suffix] += 1
     return out_c, out_s[0]
 
 
 rcg_update_kernel.launches = 0
-rcg_update_kernel.by_suffix = dict.fromkeys(INSTANTIATIONS.values(), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from msweep_tpu.ops import rcg_pallas
 from msweep_tpu_torch.inference import em as E_
 from msweep_tpu_torch.inference import problem_from_numpy
 from msweep_tpu_torch.inference import rcg as R
+from msweep_tpu_torch.inference.result import Tally
 from msweep_tpu_torch.ops import em_kernels as KE
 from msweep_tpu_torch.ops import rcg_kernels as K
 from msweep_tpu_torch.ops.rcg_kernels import materialize_gamma
@@ -189,7 +190,8 @@ def test_run_rcg_reads_once_per_chunk(reads, monkeypatch, case):
     max_iters = 40 if case == "bench" else 3000
     n = reads[0]
     st = R._run_rcg(prob, tol=-1.0 if case == "bench" else 1e-6, max_iters=max_iters,
-                    verbose=False, chunk=16, refine="exact" if case == "exact tail" else True)
+                    verbose=False, chunk=16, tally=Tally(),
+                    refine="exact" if case == "exact tail" else True)
     n = reads[0] - n
     assert sum(chunks) == 0 and sum(bounds) == 0  # nothing read inside a chunk or a pass
     escalated = len(bounds) > 1
@@ -213,7 +215,8 @@ def test_run_em_reads_once_per_chunk(reads, monkeypatch, tol):
     chunks = []
     _counting(monkeypatch, E_, "_em_chunk", reads, chunks)
     n = reads[0]
-    st = E_._run_em(prob, [prob.counts], tol=tol, max_iters=100, verbose=False, chunk=16)
+    st = E_._run_em(prob, [prob.counts], tol=tol, max_iters=100, verbose=False, chunk=16,
+                    tally=Tally())
     n = reads[0] - n
     assert sum(chunks) == 0
     assert n == (0 if tol < 0 else len(chunks))
@@ -370,7 +373,8 @@ def test_escalation_matches_jax(capsys, exact):
     sj, it_j = jrcg._escalate(st, jl, jc, ja, bc, max_it=max_it, impl="pallas_interpret",
                               mesh=None, **kw)
     log_j = capsys.readouterr().err
-    sp, it_p = R._escalate(floor, problem_from_numpy(logL, counts, alpha, bc, "cpu"), **kw)
+    sp, it_p = R._escalate(floor, problem_from_numpy(logL, counts, alpha, bc, "cpu"),
+                           tally=Tally(), **kw)
     log_p = capsys.readouterr().err
     assert int(sp.it) == int(sj.it) and it_p == it_j and bool(sp.done) == bool(sj.done)
     assert _iter_lines(log_p) == _iter_lines(log_j)

@@ -11,7 +11,9 @@ Phases (each raises on failure, and the script exits non-zero):
 2. build: the K1-K6 and T1-T3 kernels from msweep_tpu_torch/csrc, one
    nvcc per source in parallel; the instructions of one exp in float32
    and float64, counted in SASS for the bounds of phase 3;
-3. kernels: every instantiation of K1, K2 (both modes), K3 (norms and
+3. kernels: every instantiation of K1 (with and without its row terms),
+   K2 (both modes, and its delta against K1's row terms: K2's bits, each
+   row term K2's own), K3 (norms and
    row terms), K4 (delta against K3's row terms, and absolute; B in 1, 3,
    8, 13), K5, K6 (B in 1, 3, 8, 13) and T1-T3 against its plain PyTorch
    version on the card, on inputs drawn from a seed, at ragged and wide
@@ -65,7 +67,8 @@ Phases (each raises on failure, and the script exits non-zero):
    beside the parent tree's (PARENT); the iterations by phase from
    FitResult.stats (float32, blind, float64 polish, rolled back), K1/K2
    launches as live and skipped (a frozen state's steps inside a chunk),
-   K1's against the enqueued iterations; the idle
+   K1's against the enqueued iterations, the share of K2's delta launches
+   that took K1's row terms (all of them); the idle
    share over one chunk of 32 float32 iterations; then one 64-step chunk
    of the serial rcg (float32, then blind float32 rows in float64) with
    every device read an error (torch.cuda.set_sync_debug_mode), timed;
@@ -219,7 +222,9 @@ DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a l
 # multiply, compare or select is one instruction, issued at half those
 # rates.  Operations per cell that the algorithm needs besides its exps:
 # K1 18 (t, ghat, two maxes and exp sums, s, w, w s^2), K2 23 (two
-# softmaxes with their row terms, the column add), K5 6 (t, its max, t - m
+# softmaxes with their row terms, the column add), K1 with its row terms
+# and K2 against them K3's 25 and K4's 16 (one replicate's work, counted
+# below), K5 6 (t, its max, t - m
 # and its exp sum, w, the column add), K6 6 a replicate (K5's), T1 1, T2
 # 3, T3 6.  Beside K6's bound, phase 3 prints the time
 # K6's own instructions take to issue, by pipe
@@ -236,20 +241,21 @@ DONE_SHARE = 0.05  # a pass with its done flag set takes under this share of a l
 # its max, ghat - m and its exp sum 3, gamma 2, w 1, w (logL - gamma) 2,
 # the compare and select 2, the row term's add 1, the float64 column add
 # 1, its conversion from float32 on another pipe not counted).  Exps per
-# cell: K1 2 (lse(t) and the softmax), K2 2 (the old and the new softmax),
-# K3 2 (K1's), K4 1 (the new softmax: K3 hands over the old row terms), K5
-# 1, K6 1 a replicate, T1 0, T2 1, T3 2, each counted as the instructions of one exp on its
-# compute type's pipe, counted in this run's SASS
+# cell: K1 2 (lse(t) and the softmax), K2 2 (the old and the new softmax;
+# 1 against K1's row terms), K3 2 (K1's), K4 1 (the new softmax: K3
+# hands over the old row terms), K5 1, K6 1 a replicate, T1 0, T2 1,
+# T3 2, each counted as the instructions of one exp on its compute
+# type's pipe, counted in this run's SASS
 # (msweep_tpu_torch/exp_cost.py).  Other pipes (MUFU, integer) are not
 # counted, so the operations bound is a floor.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_INSTR_PER_S = {4: 67e12 / 2, 8: 34e12 / 2}  # by the compute type's size in bytes
-OPS_PER_CELL = {"rcg_norm": 18, "rcg_update": 23, "rcg_norm_batch": 25, "rcg_update_batch": 16,
-                "em_step": 6, "em_step_batch": 6, "prof_read": 1, "prof_exp": 3,
-                "prof_exp2": 6}
-EXPS_PER_CELL = {"rcg_norm": 2, "rcg_update": 2, "rcg_norm_batch": 2, "rcg_update_batch": 1,
-                 "em_step": 1, "em_step_batch": 1, "prof_read": 0, "prof_exp": 1,
-                 "prof_exp2": 2}
+OPS_PER_CELL = {"rcg_norm": 18, "rcg_update": 23, "rcg_norm_rows": 25, "rcg_update_handed": 16,
+                "rcg_norm_batch": 25, "rcg_update_batch": 16, "em_step": 6, "em_step_batch": 6,
+                "prof_read": 1, "prof_exp": 3, "prof_exp2": 6}
+EXPS_PER_CELL = {"rcg_norm": 2, "rcg_update": 2, "rcg_norm_rows": 2, "rcg_update_handed": 1,
+                 "rcg_norm_batch": 2, "rcg_update_batch": 1, "em_step": 1, "em_step_batch": 1,
+                 "prof_read": 0, "prof_exp": 1, "prof_exp2": 2}
 
 
 def _say(msg: str) -> None:
@@ -487,8 +493,8 @@ def _check_batch(torch, K, KB, L, binputs, label):
 
 def _check_instantiation(torch, K, inputs, cd, label):
     """K1, K2 delta and K2 absolute against their plain versions; reruns
-    bit-identical; zeros with the done flag set.  Returns {kernel: max abs
-    error}."""
+    bit-identical; K1's row terms and K2's delta against them
+    (_check_handoff); zeros with the done flag set.  Returns {kernel: max abs error}."""
     L, counts, psi, c_old, v_old, c_new, v_new = inputs
     rtol = 1e-5 if cd == torch.float32 else 1e-12
     kw = dict(compute_dtype=cd)
@@ -522,14 +528,54 @@ def _check_instantiation(torch, K, inputs, cd, label):
         if not (torch.equal(col, col2) and torch.equal(s, s2)):
             raise AssertionError(f"{label} rcg_update {mode}: rerun differs")
         errs["rcg_update"] = max(errs.get("rcg_update", 0.0), col_err, gap)
+        if mode == "delta":
+            errs["rcg_update_handed"] = errs["rcg_update"]
+    errs["rcg_norm_rows"] = _check_handoff(torch, K, inputs, cd, label)
     flag = torch.ones((), dtype=torch.bool, device=L.device)
     done = [K.rcg_norm_kernel(L, counts, psi, c_old, v_old, done=flag, **kw)]
+    done += K.rcg_norm_kernel(L, counts, psi, c_old, v_old, done=flag, with_rows=True, **kw)[:1]
     for c_o, v_o in ((c_old, v_old), (None, None)):
         done += K.rcg_update_kernel(L, counts, c_o, v_o, c_new, v_new, done=flag, **kw)
+    rows = torch.zeros(L.shape[0], dtype=cd, device=L.device)
+    done += K.rcg_update_kernel(L, counts, c_old, v_old, c_new, v_new, done=flag, rows_old=rows,
+                                **kw)
     if any(bool(o.any()) for o in done):
         raise AssertionError(f"{label} rcg_norm / rcg_update: a pass with its done flag set "
                              "returned nonzeros")
     return errs
+
+
+def _check_handoff(torch, K, inputs, cd, label):
+    """K1 with its row terms keeps its norm's bits; the row terms are
+    within rtol of the plain version's and, on the first, middle and last
+    rows, K2's own row terms bit for bit (its absolute mode on the row
+    alone); K2's delta against them returns the colsum and the scalar of
+    K2 taking the old softmax itself, bit for bit.  Returns the row
+    terms' max abs error."""
+    L, counts, psi, c_old, v_old, c_new, v_new = inputs
+    rtol = 1e-5 if cd == torch.float32 else 1e-12
+    kw = dict(compute_dtype=cd)
+    E = L.shape[0]
+    norm, rows = K.rcg_norm_kernel(L, counts, psi, c_old, v_old, with_rows=True, **kw)
+    _, rows_w = K.rcg_norm_plain(L, counts, psi, c_old, v_old, with_rows=True, **kw)
+    col, s = K.rcg_update_kernel(L, counts, c_old, v_old, c_new, v_new, **kw)
+    col_h, s_h = K.rcg_update_kernel(L, counts, c_old, v_old, c_new, v_new, rows_old=rows, **kw)
+    some = sorted({0, E // 2, E - 1})
+    by_k2 = [float(K.rcg_update_kernel(L[e:e + 1], counts[e:e + 1], None, None, c_old, v_old,
+                                       **kw)[1]) for e in some]
+    torch.cuda.synchronize()
+    if not torch.equal(norm, K.rcg_norm_kernel(L, counts, psi, c_old, v_old, **kw)):
+        raise AssertionError(f"{label} rcg_norm: its row terms moved the norm")
+    row_err = float((rows - rows_w).abs().max())
+    if not (torch.isfinite(rows).all() and row_err <= rtol * float(rows_w.abs().max())):
+        raise AssertionError(f"{label} rcg_norm: row terms off by {row_err!r}")
+    if [float(rows[e]) for e in some] != by_k2:
+        raise AssertionError(f"{label} rcg_norm: row terms {[float(rows[e]) for e in some]} "
+                             f"are not K2's {by_k2}")
+    if not (torch.equal(col_h, col) and torch.equal(s_h, s)):
+        raise AssertionError(f"{label} rcg_update against K1's row terms: scalar "
+                             f"{float(s_h)!r}, its own old softmax {float(s)!r}")
+    return row_err
 
 
 def _check_sweeps(torch, KP, L, seed, label):
@@ -600,13 +646,16 @@ def bound_ms(name, E, G, lsize, csize, exp_instr, B=1):
     floats, B replicates: each input read once and each output written
     once at HBM_BYTES_PER_S, against OPS_PER_CELL plus EXPS_PER_CELL
     times `exp_instr[csize]` (instructions of one exp) at the peak rate.
-    K3 writes the (E, B) row terms that K4 reads back; both read the (B,)
-    done mask.  K6 reads countsT, lse_prev (E, B) and logtheta (B, G) and
+    K1 with its row terms writes the (E,) terms that K2 reads in place of
+    v_old.  K3 writes the (E, B) row terms that K4 reads back; both read
+    the (B,) done mask.  K6 reads countsT, lse_prev (E, B) and logtheta (B, G) and
     writes lse (E, B), colsum (B, G) and ddot (B,)."""
     cells = E * G
     moved = {
         "rcg_norm": cells * lsize + E * lsize + 2 * G * csize + 8,
         "rcg_update": cells * lsize + E * lsize + 2 * G * csize + (G + 1) * 8,
+        "rcg_norm_rows": cells * lsize + E * lsize + 2 * G * csize + 8 + E * csize,
+        "rcg_update_handed": cells * lsize + E * lsize + E * csize + G * csize + (G + 1) * 8,
         "rcg_norm_batch": (cells * lsize + E * B * lsize + (2 * G + 1) * B * csize + B * 8
                            + E * B * csize + B),
         "rcg_update_batch": (cells * lsize + E * B * lsize + E * B * csize
@@ -941,6 +990,28 @@ def phase_kernels(torch, exp_instr, census):
                                                            v_new, **kw), 3),
             ),
         }
+        # K1 handing K2 its row terms, as a serial iteration runs them
+        # (_check_instantiation held K2's outputs to the bits of its own
+        # old softmax above).
+        rows = K.rcg_norm_kernel(L, counts, psi, c_old, v_old, with_rows=True, **kw)[1]
+        rows_w = K.rcg_norm_plain(L, counts, psi, c_old, v_old, with_rows=True, **kw)[1]
+        times["rcg_norm_rows"] = (
+            _time_ms(torch, lambda: K.rcg_norm_kernel(L, counts, psi, c_old, v_old,
+                                                      with_rows=True, **kw), 10),
+            _time_ms(torch, lambda: K.rcg_norm_plain(L, counts, psi, c_old, v_old,
+                                                     with_rows=True, **kw), 3),
+        )
+        times["rcg_update_handed"] = (
+            _time_ms(torch, lambda: K.rcg_update_kernel(L, counts, c_old, v_old, c_new, v_new,
+                                                        rows_old=rows, **kw), 10),
+            _time_ms(torch, lambda: K.rcg_update_plain(L, counts, c_old, v_old, c_new, v_new,
+                                                       rows_old=rows_w, **kw), 3),
+        )
+        k2_ms, handed_ms = times["rcg_update"][0], times["rcg_update_handed"][0]
+        _say(f"  rcg_update {suffix} against K1's row terms: {handed_ms:.4f} ms, taking its "
+             f"own old softmax {k2_ms:.4f} ms ({k2_ms / handed_ms:.3f}x), scalars and colsums "
+             "bit-equal")
+        del rows, rows_w
         flag = torch.ones((), dtype=torch.bool, device=L.device)
         _done_pass(torch, f"rcg_norm {suffix}", times["rcg_norm"][0], lambda: K.rcg_norm_kernel(
             L, counts, psi, c_old, v_old, done=flag, **kw))
@@ -953,7 +1024,7 @@ def phase_kernels(torch, exp_instr, census):
                   for name in OPS_PER_CELL}
         for name, (ms, plain_ms) in times.items():
             gb = L.numel() * L.element_size() / 1e9
-            if name in ("rcg_norm", "rcg_update"):
+            if name in ("rcg_norm", "rcg_update", "rcg_norm_rows", "rcg_update_handed"):
                 bms, by = bounds[name]
                 _say(f"  {name} {suffix}: kernel {ms:.4f} ms ({gb / ms:.2f} TB/s of logL), "
                      f"bound {bms:.4f} ms ({by}), share of bound {bms / ms:.3f}, "
@@ -1263,6 +1334,7 @@ def phase_full(torch, lik, build_s):
     counters = (K.rcg_norm_kernel, K.rcg_update_kernel, K.rcg_norm_plain, K.rcg_update_plain)
     for fn in counters:
         fn.launches = 0
+    K.rcg_update_kernel.handed = 0
     t = time.perf_counter()
     res = fit_result(p32, "rcgcpu", tol=1e-6, max_iters=5000)
     theta32 = res.theta.cpu().numpy()
@@ -1285,6 +1357,13 @@ def phase_full(torch, lik, build_s):
     _say(f"  launches: K1 {_live_and_skipped(k1, skipped)}, K2 {_live_and_skipped(k2, skipped)}")
     if k1 != st.enqueued:
         raise AssertionError(f"K1 launched {k1} times for {st.enqueued} enqueued iterations")
+    # Each step's K2 runs in delta mode against its K1's row terms; the
+    # other K2 launches are the bound passes, in absolute mode.
+    handed = K.rcg_update_kernel.handed
+    _say(f"  K2 delta launches that took K1's row terms: {handed} of {k1} "
+         f"({100.0 * handed / k1:.2f}%), {k2 - k1} absolute")
+    if handed != k1:
+        raise AssertionError(f"{k1 - handed} of K2's {k1} delta launches took the old softmax")
     _beside_parent("rcg", res.n_iters, res.objective, "the fit")
     if launches["rcg_norm_kernel"] == 0 or launches["rcg_update_kernel"] == 0:
         raise AssertionError(f"the main path did not launch both kernels: {launches}")

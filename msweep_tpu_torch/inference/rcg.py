@@ -5,8 +5,8 @@ derives the model, the iteration and the convergence rule).
 gamma = rownorm(c * logL + v) with a scalar c and a (G,) vector v, so the
 optimizer state is O(G) and one iteration is two streaming passes over
 logL (ops/rcg_kernels.py): K1 for the Fletcher-Reeves norm, K2 for the
-N update and the ELBO change.  The direction d ~ e * logL + f follows the
-same affine recursion:
+N update and the ELBO change against K1's row terms.  The direction
+d ~ e * logL + f follows the same affine recursion:
 
     e' = (1 - c) + beta e,   f' = (psi - v) + beta f,   c' = c + e',   v' = v + f'
 
@@ -164,18 +164,19 @@ def _step(st: RCGImplicitState, prob: DeviceProblem, *, tol: float, compute_dtyp
     """One implicit iteration: K1, the O(G) recursion, K2, accept/revert,
     all on the device.  The scalar operations are the host's float64
     operations in the same order, one op each, so the trajectory keeps
-    its bits.  When st.done is set K1/K2 skip their rows (outputs 0) and
-    _rcg_chunk keeps st.
+    its bits.  K1 hands each shard's row terms at (st.c, st.v) to that
+    shard's K2, so K2 takes one softmax (the hand-off lives for this
+    iteration only, as _step_batch's).  When st.done is set K1/K2 skip
+    their rows (outputs 0) and _rcg_chunk keeps st.
 
     `blind_tau` puts the step in blind mode for the escalation tail: it
     never declares convergence itself and reverts only on decreases larger
     than tau, the measured float32 noise scale."""
     psi = torch.special.digamma(st.n_counts)
-    (newnorm,) = prob.reduce([
-        (rcg_norm(L, n, psi.to(L.device), st.c.to(L.device), st.v.to(L.device),
-                  compute_dtype=compute_dtype, done=st.done.to(L.device)),)
-        for L, n in prob.shards
-    ])
+    outs = [rcg_norm(L, n, psi.to(L.device), st.c.to(L.device), st.v.to(L.device),
+                     compute_dtype=compute_dtype, done=st.done.to(L.device), with_rows=True)
+            for L, n in prob.shards]
+    (newnorm,) = prob.reduce([(norm,) for norm, _ in outs])
     no_momentum = st.just_reset | (st.it == 0) | (st.oldnorm <= 0)
     beta = torch.where(no_momentum, torch.zeros_like(newnorm), newnorm / st.oldnorm)
 
@@ -186,8 +187,9 @@ def _step(st: RCGImplicitState, prob: DeviceProblem, *, tol: float, compute_dtyp
 
     colsum, elbo_delta = prob.reduce([
         rcg_update(L, n, st.c.to(L.device), st.v.to(L.device), c_new.to(L.device),
-                   v_new.to(L.device), compute_dtype=compute_dtype, done=st.done.to(L.device))
-        for L, n in prob.shards
+                   v_new.to(L.device), compute_dtype=compute_dtype, done=st.done.to(L.device),
+                   rows_old=rows)
+        for (L, n), (_, rows) in zip(prob.shards, outs)
     ])
     n_new = prob.alpha + colsum
     dirichlet_delta = (torch.lgamma(n_new) - torch.lgamma(st.n_counts)).sum()

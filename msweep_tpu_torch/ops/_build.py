@@ -98,12 +98,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
 
     for suffix in ("f32_f32", "f32_f64", "f64_f64"):
-        # logL, counts, psi, c, v, done, E, G, rows_per_cta, n_cta, part, out, stream
-        sig(f"rcg_norm_{suffix}", _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P)
-        # logL, counts, c_old, v_old, c_new, v_new, done, absolute, E, G,
+        # logL, counts, psi, c, v, done, E, G, rows_per_cta, n_cta, part, rows, out, stream
+        sig(f"rcg_norm_{suffix}", _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
+            _P)
+        # logL, counts, c_old, v_old, c_new, v_new, rows_old, done, absolute, E, G,
         # rows_per_cta, n_cta, part_scalar, part_cols, out_scalar, out_cols, stream
-        sig(f"rcg_update_{suffix}", _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64,
-            _I64, _P, _P, _P, _P, _P)
+        sig(f"rcg_update_{suffix}", _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64,
+            _I64, _I64, _P, _P, _P, _P, _P)
     for suffix in ("f32_f32", "f64_f64"):
         # logL, countsT, psi, c, v, done, E, G, B, rows_per_cta, n_cta, part,
         # rowterm, out, stream

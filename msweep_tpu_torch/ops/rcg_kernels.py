@@ -4,11 +4,14 @@ gamma = rownorm(c * logL + v) is never stored (the derivation is in
 msweep_tpu/ops/rcg_pallas.py's module docstring); each iteration streams
 logL twice:
 
-- K1 ``rcg_norm``: the Fletcher-Reeves metric norm at gamma = (c, v);
+- K1 ``rcg_norm``: the Fletcher-Reeves metric norm at gamma = (c, v), and
+  with ``with_rows`` the (E,) row terms of the ELBO's data term there;
 - K2 ``rcg_update``: colsum of w = counts * exp(gamma') at (c_new, v_new)
-  and the per-row-differenced ELBO data-term change against (c_old, v_old).
-  Its absolute mode, ``rcg_bound_stats``, returns the data term itself and
-  is the escalation supervisor's exact pass and the implicit init.
+  and the per-row-differenced ELBO data-term change against (c_old, v_old),
+  or against K1's row terms at (c_old, v_old) given as ``rows_old``, so
+  that K2 takes one softmax in place of two, as K4 does with K3's.  Its
+  absolute mode, ``rcg_bound_stats``, returns the data term itself and is
+  the escalation supervisor's exact pass and the implicit init.
 
 Each pass takes ``compute_dtype`` (float32 or float64) independently of
 logL's dtype: (float32, float32) is the fast path, (float32, float64) the
@@ -19,7 +22,8 @@ Every public pass dispatches on the device of logL: a CPU tensor takes the
 plain PyTorch version, a CUDA tensor launches the hand-written kernel
 (``msweep_tpu_torch/csrc``) or raises.  Each kernel wrapper and each plain
 version counts its launches in a ``launches`` attribute, so a run can show
-which one it went through.
+which one it went through; K2's also count in ``handed`` the delta-mode
+launches that took K1's row terms.
 
 The scalars c (K1) and c_old, c_new (K2) may be Python numbers or 0-d
 tensors; the passes round them to the compute dtype on the device and the
@@ -75,6 +79,18 @@ def _scalar(x, dtype, device) -> torch.Tensor:
     return x.to(device=device, dtype=dtype)
 
 
+def _check_rows_old(logL, absolute, compute_dtype, rows_old) -> None:
+    """K1's row terms handed to a K2 delta launch: (E,) in the compute
+    dtype on logL's device; the absolute mode takes none."""
+    if rows_old is None:
+        return
+    if absolute:
+        raise ValueError("rows_old holds the old state's row terms: the absolute mode takes none")
+    E = logL.shape[0]
+    if rows_old.shape != (E,) or rows_old.dtype != compute_dtype or rows_old.device != logL.device:
+        raise ValueError(f"rows_old must be ({E},) {compute_dtype} on {logL.device}")
+
+
 def _unless_done(done, *outs):
     """outs, or zeros in their place where the 0-d bool `done` is set
     (None: never), with no host read."""
@@ -117,15 +133,31 @@ def masked_softmax(logL: torch.Tensor, L: torch.Tensor, c: torch.Tensor, v: torc
     return gamma, num, denom
 
 
-def rcg_norm_plain(logL, counts, psi, c, v, *, compute_dtype, done=None):
+def _weights(logL, L, cnt, c, v):
+    """(gamma, w = cnt * exp(gamma)) of a block of rows at (c, v), exp(gamma)
+    taken as num / denom: the plain versions' one softmax."""
+    gamma, num, denom = masked_softmax(logL, L, c, v)
+    return gamma, cnt * (num / denom)
+
+
+def _row_terms(L, gamma, w):
+    """sum_g w * (L - gamma): each row's ELBO data term, plain K1's row
+    terms and plain K2's, one expression so that they round alike."""
+    return (w * (L - gamma)).sum(dim=1)
+
+
+def rcg_norm_plain(logL, counts, psi, c, v, *, compute_dtype, done=None, with_rows=False):
     """Plain K1: sum_e sum_g w * s^2 at gamma = (c, v), float64 scalar
-    (0 where `done` is set)."""
+    (0 where `done` is set).  With `with_rows`, (norm, rows): rows (E,) in
+    compute_dtype are the data terms at (c, v), the bits plain K2 takes for
+    its old rows (0 where `done` is set)."""
     rcg_norm_plain.launches += 1
     cd, dev = compute_dtype, logL.device
     psi = psi.to(cd)
     v = v.to(cd)
     c = _scalar(c, cd, dev)
     total = torch.zeros((), dtype=F64, device=dev)
+    rows = torch.empty((logL.shape[0],), dtype=cd, device=dev) if with_rows else None
     B = _block_rows(logL.shape[1])
     for lo in range(0, logL.shape[0], B):
         Lraw = logL[lo:lo + B]
@@ -134,26 +166,34 @@ def rcg_norm_plain(logL, counts, psi, c, v, *, compute_dtype, done=None):
         t = L + psi
         m1 = t.amax(dim=1, keepdim=True)
         lse1 = m1 + torch.log(torch.exp(t - m1).sum(dim=1, keepdim=True))
-        gamma, num, denom = masked_softmax(Lraw, L, c, v)
-        w = cnt * (num / denom)
+        gamma, w = _weights(Lraw, L, cnt, c, v)
         s = (t - lse1) - gamma
         total = total + (w * s * s).sum(dim=1).to(F64).sum()
+        if with_rows:
+            rows[lo:lo + B] = _row_terms(L, gamma, w)
+    if with_rows:
+        return _unless_done(done, total, rows)
     return _unless_done(done, total)[0]
 
 
 rcg_norm_plain.launches = 0
 
 
-def rcg_update_plain(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None):
+def rcg_update_plain(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None,
+                     rows_old=None):
     """Plain K2: (colsum (G,), scalar), both float64.  The scalar is
-    sum_e (row_new - row_old); with c_old None (absolute mode) it is
-    sum_e row_new.  Both are 0 where `done` is set."""
-    rcg_update_plain.launches += 1
+    sum_e (row_new - row_old), row_old taken from `rows_old` (plain K1's
+    row terms at (c_old, v_old)) where given; with c_old None (absolute
+    mode) it is sum_e row_new.  Both are 0 where `done` is set."""
     cd, dev = compute_dtype, logL.device
     absolute = c_old is None
+    _check_rows_old(logL, absolute, cd, rows_old)
+    rcg_update_plain.launches += 1
+    rcg_update_plain.handed += rows_old is not None
     v_new = v_new.to(cd)
     c_new = _scalar(c_new, cd, dev)
-    if not absolute:
+    own_old = not absolute and rows_old is None
+    if own_old:
         v_old = v_old.to(cd)
         c_old = _scalar(c_old, cd, dev)
     G = logL.shape[1]
@@ -164,19 +204,18 @@ def rcg_update_plain(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype,
         Lraw = logL[lo:lo + B]
         L = Lraw.to(cd)
         cnt = counts[lo:lo + B].to(cd)[:, None]
-        g_new, num, denom = masked_softmax(Lraw, L, c_new, v_new)
-        w_new = cnt * (num / denom)
-        row = (w_new * (L - g_new)).sum(dim=1)
-        if not absolute:
-            g_old, num_o, den_o = masked_softmax(Lraw, L, c_old, v_old)
-            w_old = cnt * (num_o / den_o)
-            row = row - (w_old * (L - g_old)).sum(dim=1)
+        g_new, w_new = _weights(Lraw, L, cnt, c_new, v_new)
+        row = _row_terms(L, g_new, w_new)
+        if own_old:
+            row = row - _row_terms(L, *_weights(Lraw, L, cnt, c_old, v_old))
+        elif not absolute:
+            row = row - rows_old[lo:lo + B]
         colsum = colsum + w_new.to(F64).sum(dim=0)
         total = total + row.to(F64).sum()
     return _unless_done(done, colsum, total)
 
 
-rcg_update_plain.launches = 0
+rcg_update_plain.launches = rcg_update_plain.handed = 0
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +282,9 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
-def rcg_norm_kernel(logL, counts, psi, c, v, *, compute_dtype, done=None):
-    """K1 on the card (msweep_tpu_torch/csrc/rcg_norm.cu)."""
+def rcg_norm_kernel(logL, counts, psi, c, v, *, compute_dtype, done=None, with_rows=False):
+    """K1 on the card (msweep_tpu_torch/csrc/rcg_norm.cu); with `with_rows`
+    (norm, rows), rows left unwritten where `done` is set."""
     from ._build import load
 
     suffix, (counts, psi, v) = _check_inputs(logL, counts, compute_dtype, (psi, v))
@@ -254,30 +294,35 @@ def rcg_norm_kernel(logL, counts, psi, c, v, *, compute_dtype, done=None):
     c = _scalar(c, compute_dtype, dev)
     done, done_ptr = _flag(done, dev)
     part = torch.empty((n_cta,), dtype=F64, device=dev)
+    rows = torch.empty((E,), dtype=compute_dtype, device=dev) if with_rows else None
     out = torch.empty((1,), dtype=F64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(load(), f"rcg_norm_{suffix}")(
             logL.data_ptr(), counts.data_ptr(), psi.data_ptr(), c.data_ptr(), v.data_ptr(),
-            done_ptr, E, G, rows_per_cta, n_cta, part.data_ptr(), out.data_ptr(), stream,
+            done_ptr, E, G, rows_per_cta, n_cta, part.data_ptr(),
+            rows.data_ptr() if with_rows else None, out.data_ptr(), stream,
         )
     _raise_on(rc, "rcg_norm")
     rcg_norm_kernel.launches += 1
-    return out[0]
+    return (out[0], rows) if with_rows else out[0]
 
 
 rcg_norm_kernel.launches = 0
 
 
-def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None):
+def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None,
+                      rows_old=None):
     """K2 on the card (msweep_tpu_torch/csrc/rcg_update.cu); c_old None
-    selects the absolute mode."""
+    selects the absolute mode, `rows_old` (K1's row terms at (c_old,
+    v_old)) the delta mode with one softmax."""
     from ._build import load
 
     absolute = c_old is None
+    _check_rows_old(logL, absolute, compute_dtype, rows_old)
     dev = logL.device
     c_new = _scalar(c_new, compute_dtype, dev)
-    if absolute:
+    if absolute or rows_old is not None:
         c_old, v_old = c_new, v_new  # not read
     c_old = _scalar(c_old, compute_dtype, dev)
     suffix, (counts, v_old, v_new) = _check_inputs(
@@ -290,20 +335,23 @@ def rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype
     part_c = torch.empty((n_cta, G), dtype=F64, device=dev)
     out_s = torch.empty((1,), dtype=F64, device=dev)
     out_c = torch.empty((G,), dtype=F64, device=dev)
+    if rows_old is not None:
+        rows_old = rows_old.contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(load(), f"rcg_update_{suffix}")(
             logL.data_ptr(), counts.data_ptr(), c_old.data_ptr(), v_old.data_ptr(),
-            c_new.data_ptr(), v_new.data_ptr(), done_ptr, int(absolute), E, G, rows_per_cta,
-            n_cta, part_s.data_ptr(), part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr(),
-            stream,
+            c_new.data_ptr(), v_new.data_ptr(), None if rows_old is None else rows_old.data_ptr(),
+            done_ptr, int(absolute), E, G, rows_per_cta, n_cta, part_s.data_ptr(),
+            part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr(), stream,
         )
     _raise_on(rc, "rcg_update")
     rcg_update_kernel.launches += 1
+    rcg_update_kernel.handed += rows_old is not None
     return out_c, out_s[0]
 
 
-rcg_update_kernel.launches = 0
+rcg_update_kernel.launches = rcg_update_kernel.handed = 0
 
 
 # ---------------------------------------------------------------------------
@@ -311,22 +359,28 @@ rcg_update_kernel.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def rcg_norm(logL, counts, psi, c, v, *, compute_dtype, done=None):
+def rcg_norm(logL, counts, psi, c, v, *, compute_dtype, done=None, with_rows=False):
     """Pass 1 at gamma = (c, v): the metric norm, a float64 0-d tensor.
 
     logL (E, G); counts (E,) in logL's dtype; psi = digamma(N) and v (G,);
     c a Python number or a 0-d tensor.  c, psi and v are rounded to
-    compute_dtype.  0 where the 0-d bool `done` is set."""
+    compute_dtype.  0 where the 0-d bool `done` is set.  With `with_rows`,
+    (norm, rows): the (E,) row terms of the ELBO's data term at (c, v) in
+    compute_dtype, for rcg_update's `rows_old` in the same iteration."""
+    kw = dict(compute_dtype=compute_dtype, done=done, with_rows=with_rows)
     if _on_cpu(logL):
-        return rcg_norm_plain(logL, counts, psi, c, v, compute_dtype=compute_dtype, done=done)
-    return rcg_norm_kernel(logL, counts, psi, c, v, compute_dtype=compute_dtype, done=done)
+        return rcg_norm_plain(logL, counts, psi, c, v, **kw)
+    return rcg_norm_kernel(logL, counts, psi, c, v, **kw)
 
 
-def rcg_update(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None):
+def rcg_update(logL, counts, c_old, v_old, c_new, v_new, *, compute_dtype, done=None,
+               rows_old=None):
     """Pass 2: (colsum (G,), ELBO data-term change), float64, at
     gamma' = (c_new, v_new) against gamma = (c_old, v_old); zeros where
-    `done` is set."""
-    kw = dict(compute_dtype=compute_dtype, done=done)
+    `done` is set.  `rows_old`, rcg_norm's row terms at (c_old, v_old),
+    stand in for the old softmax with the same bits (c_old, v_old are then
+    not read)."""
+    kw = dict(compute_dtype=compute_dtype, done=done, rows_old=rows_old)
     if _on_cpu(logL):
         return rcg_update_plain(logL, counts, c_old, v_old, c_new, v_new, **kw)
     return rcg_update_kernel(logL, counts, c_old, v_old, c_new, v_new, **kw)

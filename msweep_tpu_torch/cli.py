@@ -479,11 +479,22 @@ def _run(args, alignment_paths: list[str], device: torch.device, log: Log) -> in
                 )
                 batch = resampler.resample_batch(args.iters)
                 family = algorithm_family(args.algorithm)
-                batch_fit = fit_rcg_batch if family == "rcg" else fit_em_batch
-                log(f"  {family} bootstrap: impl={pick_impl(problem)} replicates={args.iters}")
                 # Abundances straight from the batch fit: no (B, E, G) batch.
-                tb, _, _ = batch_fit(problem, batch, tol=args.tol, max_iters=args.max_iters)
+                stats = []
+                if family == "rcg":
+                    tb, _, _ = fit_rcg_batch(problem, batch, tol=args.tol,
+                                             max_iters=args.max_iters, stats=stats)
+                else:
+                    tb, _, _ = fit_em_batch(problem, batch, tol=args.tol,
+                                            max_iters=args.max_iters)
                 tb = tb.cpu().numpy()
+                line = f"  {family} bootstrap: impl={pick_impl(problem)} replicates={args.iters}"
+                if stats and log.verbose:
+                    st = stats[0]
+                    line += (f": iterations {st.iters.tolist()}, {int(st.live_passes)} of "
+                             f"{st.passes} replicate-passes live; {st.enqueued} enqueued in "
+                             f"{st.chunks} chunks, {st.host_reads} host reads")
+                log(line)
                 sample.bootstrap_results = [theta] + list(tb)
 
             stream = out.abundances()

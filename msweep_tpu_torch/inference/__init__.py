@@ -7,9 +7,10 @@ from .mixture import bound_const, mixture_components
 from .pack import DeviceProblem, pack_problem, problem_from_numpy
 from .rate import dirichlet_kld, dirichlet_kld_from_pseudocounts, rates_from_log_kld
 from .rcg import fit_rcg, fit_rcg_batch, fit_rcg_result
-from .result import FitResult, FitStats
+from .result import BatchStats, FitResult, FitStats
 
 __all__ = [
+    "BatchStats",
     "DeviceProblem",
     "FitResult",
     "FitStats",

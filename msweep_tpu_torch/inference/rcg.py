@@ -51,7 +51,8 @@ iterations is enqueued with no host sync and the host reads done.all()
 once per chunk.  Within an iteration K3 hands K4 the row terms at the
 current state, so K4 takes one softmax; replicates already done skip
 their rows.  The batch has no precision escalation, as in the JAX
-package.
+package.  Its reads go through a Tally too, which counts them and the
+chunks for BatchStats and opens the batch's spans.
 
 tol < 0 is bench mode: run exactly max_iters iterations.
 """
@@ -575,7 +576,7 @@ def _rcg_chunk_batch(state: RCGBatchState, prob: DeviceProblem, countsT: list, *
 
 
 def fit_rcg_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
-                  max_iters: int = 5000, chunk: int = 16):
+                  max_iters: int = 5000, chunk: int = 16, stats: list | None = None):
     """rcg over a (B, E) batch of count vectors sharing one logL: the
     bootstrap's refits (msweep_tpu/inference/rcg.py fit_rcg_batch).  The
     replicates advance in lockstep chunks, each freezing at its own
@@ -585,19 +586,38 @@ def fit_rcg_batch(problem: DeviceProblem, counts_batch, *, tol: float = 1e-6,
     columns.  Returns (theta (B, G) float64, iterations (B,), bound (B,)
     float64): theta = (N - alpha) / sum(counts) per replicate, from the
     state, never a (B, E, G) gamma batch (no_groups_batch for a problem
-    with no groups)."""
-    if problem.n_groups == 0:
-        return no_groups_batch(problem, counts_batch)
+    with no groups).  Where `stats` is a list, the fit appends its
+    BatchStats to it.  The fit opens the spans "msweep::rcg.batch.fit",
+    "msweep::rcg.batch.chunk" for each chunk enqueued and "msweep::read"
+    for each host read."""
+    with span("rcg.batch.fit"):
+        tally = Tally()
+        if problem.n_groups == 0:
+            out = no_groups_batch(problem, counts_batch)
+        else:
+            out = _run_rcg_batch(problem, counts_batch, tol=float(tol), max_iters=int(max_iters),
+                                 chunk=chunk, tally=tally)
+        if stats is not None:
+            stats.append(tally.batch_stats(out[1]))
+        return out
+
+
+def _run_rcg_batch(problem: DeviceProblem, counts_batch, *, tol: float, max_iters: int,
+                   chunk: int, tally: Tally):
+    """fit_rcg_batch's loop: the init's two constants read once, then
+    chunks of `chunk` iterations, `done` read once after each (never in
+    bench mode, tol < 0)."""
     countsT = [part.T.contiguous() for part in problem.split(counts_batch)]
-    asum0 = float(problem.alpha[: problem.n_groups].sum())
-    csum0 = float(problem.row_sum([n for _, n in problem.shards]))
+    asum0 = tally.read(float, problem.alpha[: problem.n_groups].sum())
+    csum0 = tally.read(float, problem.row_sum([n for _, n in problem.shards]))
     state = _rcg_init_implicit_batch(problem, countsT, asum0, csum0)
     it = 0
     while it < max_iters:
-        state = _rcg_chunk_batch(state, problem, countsT, length=chunk, tol=float(tol),
-                                 max_it=int(max_iters))
+        with tally.chunk("rcg.batch.chunk", chunk):
+            state = _rcg_chunk_batch(state, problem, countsT, length=chunk, tol=tol,
+                                     max_it=max_iters)
         it += chunk
-        if tol >= 0 and bool(state.done.all()):
+        if tol >= 0 and tally.read(bool, state.done.all()):
             break
     csum_b = problem.row_sum(countsT)
     theta = (state.n_counts - problem.alpha[None, :]) / csum_b[:, None]

@@ -1,13 +1,15 @@
 """Fit result with O(G) abundances and lazy gamma materialization
 (counterpart of msweep_tpu/inference/result.py), and what a fit records
-of itself: its counts (FitStats) and its spans in a profiler trace.
+of itself: its counts (FitStats for a serial fit, BatchStats for the rcg
+bootstrap's lockstep batch) and its spans in a profiler trace.
 
 A plain abundance run only consumes theta; the (E, G) probability matrix
 is needed only for --write-probs / --print-probs / --bin-reads, so it is
 built only when `.gamma()` is called.
 
-Spans: the serial fits open named ranges ("msweep::rcg.fit",
-"msweep::em.chunk", "msweep::read", ...) that a torch.profiler trace
+Spans: the serial fits and the rcg batch open named ranges
+("msweep::rcg.fit", "msweep::em.chunk", "msweep::rcg.batch.chunk",
+"msweep::read", ...) that a torch.profiler trace
 records on the host's timeline, on the clock of the device's events; with
 no profiler active a range costs under a microsecond.  They are
 ranges of the function scope, as an aten operator's, not
@@ -54,15 +56,41 @@ class FitStats:
     host_reads: int = 0  # device-to-host reads
 
 
+@dataclass(frozen=True)
+class BatchStats:
+    """Counts of one lockstep batch fit (fit_rcg_batch), worked out on the
+    host from what its loop knows anyway, with no read of its own.  The
+    per-replicate iterations stay the device tensor the fit returns
+    (state.it), for whoever wants them to read."""
+
+    iters: Any  # (B,) int64 on the fit's device: each replicate's iterations
+    enqueued: int = 0  # batched iterations enqueued: the sum of the chunks' lengths
+    chunks: int = 0
+    host_reads: int = 0  # device-to-host reads
+
+    @property
+    def passes(self) -> int:
+        """Replicate-passes enqueued: B x enqueued."""
+        return len(self.iters) * self.enqueued
+
+    @property
+    def live_passes(self):
+        """Replicate-passes that did work, the sum of the replicates'
+        iterations (a 0-d device tensor; passes less these were a done
+        replicate's, rows skipped)."""
+        return self.iters.sum()
+
+
 class Tally:
-    """The running counts of one serial fit on the host, frozen into its
-    FitStats by stats().  Every device-to-host read of the loops goes
-    through read(), every enqueued chunk through chunk(), so that each
-    opens its span and is counted."""
+    """The running counts of one fit on the host, frozen into its
+    FitStats by stats() or its BatchStats by batch_stats().  Every
+    device-to-host read of the loops goes through read(), every enqueued
+    chunk through chunk(), so that each opens its span and is counted."""
 
     def __init__(self):
         self.counts = Counter()  # FitStats's fields but main and polish, worked out at the end
         self.anchor = None  # state.it where the escalation took over, read there
+        self.chunks = 0
 
     def read(self, convert: Callable[[torch.Tensor], Any], tensor: torch.Tensor):
         """convert(tensor), one read of the device (bool, int, float or
@@ -75,11 +103,16 @@ class Tally:
         """The span of one chunk of `length` iterations: the host's time to
         enqueue it, its waits on a full launch queue included."""
         self.counts["enqueued"] += length
+        self.chunks += 1
         return span(name)
 
     def stats(self, n_iters: int) -> FitStats:
         main = n_iters if self.anchor is None else self.anchor
         return FitStats(main=main, polish=n_iters - main - self.counts["blind"], **self.counts)
+
+    def batch_stats(self, iters) -> BatchStats:
+        return BatchStats(iters=iters, enqueued=self.counts["enqueued"], chunks=self.chunks,
+                          host_reads=self.counts["host_reads"])
 
 
 @dataclass(frozen=True)

@@ -1,16 +1,19 @@
-"""Read the serial fits of chip_smoke.py phases 5 and 6 on the card through
-their msweep:: spans and FitResult.stats, from the checkout given by
---tree, so that two versions of the optimizer loops can be compared in one
-call:
+"""Read the serial fits of chip_smoke.py phases 5 and 6, and the rcg
+bootstrap's batch, on the card through their msweep:: spans and their
+counts (FitResult.stats, BatchStats), from the checkout given by --tree,
+so that two versions of the optimizer loops can be compared in one call:
 
-    python3 msweep_tpu_torch/trace_fits.py --tree DIR [--algo rcg,em]
+    python3 msweep_tpu_torch/trace_fits.py --tree DIR [--algo rcg,em,rcgbatch] [--seed N]
 
 DIR is the root of a checkout, as for time_fits.py, and rcg and em are
 its fits: the synthetic community of phase 5 (2,301,952 x 512, seed 1),
 rcg packed in float32 with the escalation tail, EM packed in float64 to
-its 5000-iteration cap, both at tol 1e-6.  The first line is the card's
-name and power limit; then, for each fit, after a short warm-up fit, one
-JSON object a line:
+its 5000-iteration cap, both at tol 1e-6.  rcgbatch is fit_rcg_batch on
+the benchmark's efaec1-rcg64 problem (its community in float64, through
+the tree's `benchmark` package and this checkout's configuration file),
+8 replicates drawn from --seed as the benchmark draws them, tol 1e-6, cap
+5000.  The first line is the card's name and power limit; then, for each
+fit, after a short warm-up fit, one JSON object a line:
 
 - span_us: microseconds to open and close one msweep:: span with no
   profiler active (null on a tree without spans);
@@ -18,9 +21,10 @@ JSON object a line:
   launch queue with no profiler: a chunk of ENQ_LEN iterations timed from
   a synchronized device, the median of ENQ_REPS;
 - the fit under torch.profiler (CPU and CUDA activity), its theta not
-  read: iters, objective (repr), stats (FitResult.stats, null on a tree
-  without them), spans (count and milliseconds by name), and read_fit's
-  reading of its events.
+  read: iters, objective (repr), stats (FitResult.stats, or BatchStats
+  with its live and enqueued replicate-passes; null on a tree without
+  them), spans (count and milliseconds by name), and read_fit's reading
+  of its events.
 
 Run it as a file, not with -m, so that the tree's package is the one
 imported.
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import dataclasses
+import inspect
 import json
 import os
 import statistics
@@ -44,6 +49,9 @@ WARM_ITERS = 64
 QUEUED_US = 10.0  # an idle gap shorter than this lies between operations already queued
 LONG_US = 1500.0
 BLOCKED_US = 50.0  # a launch call longer than this waited on a full launch queue
+# rcgbatch's problem, this checkout's file (a parent tree may not have it)
+BATCH_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "benchmark", "configs", "efaec1-rcg64.json")
 
 
 def read_fit(device_ops, launches, spans) -> dict:
@@ -133,7 +141,7 @@ def _span_us(n: int = 100_000):
     return (time.perf_counter() - t) / n * 1e6
 
 
-def _enqueue_ms(torch, p, algo: str) -> float:
+def _enqueue_ms(torch, p, algo: str, batch=None) -> float:
     from msweep_tpu_torch.inference import em as EM
     from msweep_tpu_torch.inference import rcg as R
 
@@ -142,6 +150,14 @@ def _enqueue_ms(torch, p, algo: str) -> float:
 
         def step(s):
             return R._rcg_chunk(s, p, length=ENQ_LEN, tol=1e-6, compute_dtype=p.dtype)[0]
+    elif algo == "rcgbatch":
+        countsT = [part.T.contiguous() for part in p.split(batch)]
+        asum0 = float(p.alpha.sum())
+        csum0 = float(p.row_sum([n for _, n in p.shards]))
+        state = R._rcg_init_implicit_batch(p, countsT, asum0, csum0)
+
+        def step(s):
+            return R._rcg_chunk_batch(s, p, countsT, length=ENQ_LEN, tol=1e-6)
     else:
         c, am1 = [n for _, n in p.shards], p.alpha - 1.0
         state = EM._em_init(p, c, am1)
@@ -161,14 +177,15 @@ def _enqueue_ms(torch, p, algo: str) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--algo", default="rcg,em", help="comma-separated: rcg, em")
+    ap.add_argument("--algo", default="rcg,em", help="comma-separated: rcg, em, rcgbatch")
+    ap.add_argument("--seed", type=int, default=2**31 + 23, help="rcgbatch's replicates")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path[0] = tree  # the tree's package, not this file's directory
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from msweep_tpu_torch.inference import fit_result, pack_problem
+    from msweep_tpu_torch.inference import fit_rcg_batch, fit_result, pack_problem
     from msweep_tpu_torch.ops import _build
     from msweep_tpu_torch.synth import make_community_likelihood
 
@@ -180,32 +197,68 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     _build.load()
-    lik = make_community_likelihood(2_301_952, 512, seed=1, similarity=0.99, cluster_size=8,
-                                    present_frac=0.06)
+    algos = args.algo.split(",")
+    if {"rcg", "em"} & set(algos):
+        lik = make_community_likelihood(2_301_952, 512, seed=1, similarity=0.99,
+                                        cluster_size=8, present_frac=0.06)
     runs = {"rcg": (torch.float32, "rcgcpu"), "em": (torch.float64, "emgpu")}
-    for algo in args.algo.split(","):
-        dtype, name = runs[algo]
-        p = pack_problem(lik, dtype=dtype, device=torch.device("cuda"))
-        fit_result(p, name, tol=1e-6, max_iters=WARM_ITERS).theta.cpu()
+    for algo in algos:
+        batch = None
+        if algo == "rcgbatch":
+            p, batch = _batch_problem(args.seed)
+            fit_rcg_batch(p, batch, tol=-1.0, max_iters=2, chunk=2)[0].cpu()
+        else:
+            dtype, name = runs[algo]
+            p = pack_problem(lik, dtype=dtype, device=torch.device("cuda"))
+            fit_result(p, name, tol=1e-6, max_iters=WARM_ITERS).theta.cpu()
         row = dict(tree=args.tree, algo=algo, span_us=_span_us(),
-                   enqueue_ms=_enqueue_ms(torch, p, algo))
+                   enqueue_ms=_enqueue_ms(torch, p, algo, batch))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            res = fit_result(p, name, tol=1e-6, max_iters=5000)
-            iters, objective = int(res.n_iters), float(res.objective)
+            if algo == "rcgbatch":
+                out = []
+                kw = ({"stats": out} if "stats" in inspect.signature(fit_rcg_batch).parameters
+                      else {})
+                _, n_iters, bound = fit_rcg_batch(p, batch, tol=1e-6, max_iters=5000, **kw)
+                iters, objective = n_iters.tolist(), bound.tolist()
+            else:
+                res = fit_result(p, name, tol=1e-6, max_iters=5000)
+                iters, objective = int(res.n_iters), repr(float(res.objective))
         dev, launches, spans = _events(prof)
         by_name = {}
         for n, a, b in spans:
             k, t = by_name.get(n, (0, 0.0))
             by_name[n] = (k + 1, t + (b - a) * 1e-3)
-        stats = getattr(res, "stats", None)
-        row.update(iters=iters, objective=repr(objective),
-                   stats=dataclasses.asdict(stats) if stats is not None else None,
-                   spans=by_name, **read_fit(dev, launches, spans))
+        if algo == "rcgbatch":
+            stats = _batch_stats(out[0]) if out else None
+        else:
+            stats = getattr(res, "stats", None)
+            stats = dataclasses.asdict(stats) if stats is not None else None
+        row.update(iters=iters, objective=objective, stats=stats, spans=by_name,
+                   **read_fit(dev, launches, spans))
         print(json.dumps(row), flush=True)
-        del p, res, prof
+        del p, prof
         torch.cuda.empty_cache()
     return 0
+
+
+def _batch_problem(seed: int):
+    """(DeviceProblem, (B, E) replicate counts) of the benchmark's
+    BATCH_CONFIG on the card: the tree's own community generator, problem
+    and draw (benchmark/community.py, harness.py, jobs.py)."""
+    from benchmark import community, harness, jobs
+
+    with open(BATCH_CONFIG) as f:
+        config = json.load(f)
+    data = community.make_community(config, seed, "cuda")
+    p = harness.device_problem(data.logL, data.counts, config["alpha"])
+    return p, jobs.resample(data.counts, 8, seed)
+
+
+def _batch_stats(st) -> dict:
+    """A BatchStats as JSON, its device counts read."""
+    return dict(iters=st.iters.tolist(), enqueued=st.enqueued, chunks=st.chunks,
+                host_reads=st.host_reads, live_passes=int(st.live_passes), passes=st.passes)
 
 
 if __name__ == "__main__":

@@ -199,13 +199,30 @@ def test_spans_nest_in_the_fit_span(algo):
 
 @pytest.mark.parametrize("fit", [fit_rcg_batch, fit_em_batch], ids=["rcg", "em"])
 def test_batch_spans(fit):
-    """The bootstrap batches open no span: they keep no per-replicate
-    counts for a span to be read beside, and nothing reads their trace."""
+    """The rcg batch opens its fit span, one chunk span per chunk (its
+    BatchStats's chunks) and one read span per host read, every one inside
+    the fit span and no read inside a chunk, none a user annotation.  The
+    EM batch opens none: nothing reads its trace yet."""
     lik = _lik()
     batch = BootstrapResampler(lik.ec_counts, seed=7).resample_batch(3)
+    kw = {"stats": []} if fit is fit_rcg_batch else {}
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _, iters, _ = fit(pack_problem(lik, device="cpu"), batch, tol=1e-8, chunk=8)
-    assert int(iters.min()) > 0 and _spans(prof) == []
+        _, iters, _ = fit(pack_problem(lik, device="cpu"), batch, tol=1e-8, chunk=8, **kw)
+    assert int(iters.min()) > 0
+    spans = _spans(prof)
+    if fit is fit_em_batch:
+        assert spans == []
+        return
+    (st,) = kw["stats"]
+    assert {name for name, *_ in spans} == {"rcg.batch.fit", "rcg.batch.chunk", "read"}
+    assert not any(user for *_, user in spans)
+    ((fa, fb),) = [(a, b) for name, a, b, _ in spans if name == "rcg.batch.fit"]
+    assert all(fa <= a <= b <= fb for _, a, b, _ in spans)
+    chunks = [(a, b) for name, a, b, _ in spans if name == "rcg.batch.chunk"]
+    reads = [(a, b) for name, a, b, _ in spans if name == "read"]
+    assert len(chunks) == st.chunks and len(chunks) * 8 == st.enqueued
+    assert len(reads) == st.host_reads == st.chunks + 2
+    assert not any(ca <= ra < cb for ca, cb in chunks for ra, _ in reads)
 
 
 def test_span_is_a_profiler_range():

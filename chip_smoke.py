@@ -1085,7 +1085,8 @@ def phase_kernels(torch, exp_instr, census):
                 info = KB.kernel_info(name, suffix, G, torch.cuda.current_device())
                 _say(f"  {name} {suffix} at G={G}: {info['registers']} registers, "
                      f"{info['spill_bytes']} local (spilled) bytes a thread, tile of "
-                     f"{info['tile_rows']} staged rows, {info['ctas_per_sm']} CTAs an SM")
+                     f"{info['tile_rows']} staged rows, {info['ctas_per_sm']} CTAs an SM, "
+                     f"{info['warps_per_sm']} warps an SM")
             del em_in, b_in, countsT, rows, rows_w
         if ld == cd:
             info = KE.kernel_info(suffix, G, torch.cuda.current_device())

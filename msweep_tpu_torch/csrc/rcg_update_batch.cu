@@ -230,7 +230,7 @@ static int launch_update_batch(const void* logL, const void* countsT, const void
 }
 
 // out = kernel_info of the build G columns run: registers, spilled bytes,
-// tile rows and CTAs an SM.
+// tile rows, CTAs an SM and warps an SM.
 template <typename LT, typename CT>
 static int info_update_batch(int64_t G, int* out) {
   const void* kernel = nullptr;
@@ -248,7 +248,7 @@ static int info_update_batch(int64_t G, int* out) {
 // null: absolute mode), v_new (B, G) and c_new (B,) in the compute type;
 // done is (B,) bool or null (no replicate done).  part_scalar is scratch of
 // n_cta * B doubles, part_cols of n_cta * B * G; out_scalar is B doubles,
-// out_cols B * G; all on the device.  *_info fills four ints
+// out_cols B * G; all on the device.  *_info fills five ints
 // (rcg::info_update_batch).  Both return a CUDA error.
 #define RCG_UPDATE_BATCH_ENTRY(NAME, LT, CT)                                                  \
   extern "C" int NAME(const void* logL, const void* countsT, const void* rows_old,            \

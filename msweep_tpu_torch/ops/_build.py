@@ -115,7 +115,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         sig(f"rcg_update_batch_{suffix}", _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
             _P, _P, _P, _P, _P)
         for name in ("rcg_norm_batch", "rcg_update_batch"):
-            # G, out (4 ints)
+            # G, out (5 ints)
             sig(f"{name}_{suffix}_info", _I64, _P)
         # logL, counts, lse_prev, logtheta, done, E, G, n_cta, lse_out,
         # part_scalar, part_cols, out_scalar, out_cols, stream

@@ -216,15 +216,16 @@ def kernel_info(name: str, suffix: str, G: int, device_index: int) -> dict:
     """K3's ("rcg_norm_batch") or K4's ("rcg_update_batch") build at G
     columns on a card: registers and local (spilled) bytes a thread, rows
     of its tile (staged rows of logL for G <= 512, rows of weights in K4
-    beyond; 0 for K3 beyond 512) and CTAs resident an SM, from the
-    runtime."""
+    beyond; 0 for K3 beyond 512), and CTAs and warps resident an SM, from
+    the runtime."""
     from ._build import load
 
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
         rc = getattr(load(), f"{name}_{suffix}_info")(G, out)
     _raise_on(rc, f"{name}_info")
-    return dict(zip(("registers", "spill_bytes", "tile_rows", "ctas_per_sm"), out))
+    return dict(zip(("registers", "spill_bytes", "tile_rows", "ctas_per_sm", "warps_per_sm"),
+                    out))
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,8 @@ K1 and K2 passes over the replicates' columns are timed beside them.
 The first line is the card's name and power limit (nvidia-smi); then one
 JSON object a line for each type: each kernel's ms a pass (CUDA events,
 the mean of --reps calls after one warm-up), checksums of the outputs,
-and registers, spills, tile rows and CTAs an SM where the tree reports
-them.  With --fit it runs chip_smoke.py phase 7 instead: the B = 8
+and registers, spills, tile rows, CTAs an SM and warps an SM where the
+tree reports them.  With --fit it runs chip_smoke.py phase 7 instead: the B = 8
 float32 bootstrap fit of the synthetic community at 2,301,952 x 512, and
 prints its seconds (host clock, the fit alone), iterations per replicate
 and K3/K4 launches.
@@ -314,7 +314,9 @@ def main(argv=None) -> int:
         if hasattr(KB, "kernel_info"):
             dev = torch.cuda.current_device()
             for name in ("rcg_norm_batch", "rcg_update_batch"):
-                rec[name] = KB.kernel_info(name, KB.INSTANTIATIONS[dtype], G, dev)
+                info = rec[name] = KB.kernel_info(name, KB.INSTANTIATIONS[dtype], G, dev)
+                # a tree that does not count warps runs CTAs of 8
+                info.setdefault("warps_per_sm", info["ctas_per_sm"] * 8)
         if dtype == torch.float32:
             cols = [cT[:, b].contiguous() for b in range(B)]
             co, cn = c_old.tolist(), c_new.tolist()  # every tree's K1/K2 take Python floats

@@ -317,17 +317,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (E, B, G, replicates done): the warp-per-replicate build at 16-byte and
+# 4-byte rows and at the bootstrap cell's 512 groups (float64: the rows, psi
+# and v in shared memory), the warp-per-row build at 700; B of 1, 8, 13 and 16 (one
+# CTA of replicates, a part-filled second one, two full ones); E = 37, far
+# fewer rows than row ranges, so most ranges are empty; masks that leave
+# every replicate done (B = 1) and every replicate of the second CTA done.
+BATCH_CASES = [
+    (4099, 13, 300, (1, 8, 12)),
+    (4099, 13, 33, (1, 8, 12)),
+    (4099, 13, 700, (1, 8, 12)),
+    (4099, 1, 512, (0,)),
+    (4099, 8, 512, (3,)),
+    (4099, 16, 512, tuple(range(8, 16))),
+    (37, 8, 512, (1, 6)),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [300, 33, 700])  # warp per replicate (16-byte and 4-byte rows), per row
+@pytest.mark.parametrize("E,B,G,done_at", BATCH_CASES)
 @pytest.mark.parametrize("ldtype", list(KB.INSTANTIATIONS))
-def test_cuda_batch_kernels_match_plain(cuda_device, ldtype, G):
+def test_cuda_batch_kernels_match_plain(cuda_device, ldtype, E, B, G, done_at):
     """K3 (norms and row terms) and K4 (delta against K3's row terms, and
     absolute) against their plain versions on the card, and replicate by
     replicate against K1/K2 on the same column: the same bits (same grid,
-    same row order; K4's delta is K2's at (c_old, v_old), (c_new, v_new));
-    a rerun gives the same bits; a done mask zeroes its replicates and
-    leaves the others' bits."""
-    E, B, seed = 4099, 13, 17
+    same row order; K3's norm and row terms are K1's with its row terms,
+    K4's delta is K2's at (c_old, v_old), (c_new, v_new)); a rerun gives
+    the same bits; a done mask zeroes its replicates and leaves the
+    others' bits."""
+    seed = 17
     logL, counts, _, _ = _problem(E, G, seed)
     dev = cuda_device
     L = _t(logL, ldtype).to(dev)
@@ -342,10 +360,17 @@ def test_cuda_batch_kernels_match_plain(cuda_device, ldtype, G):
     again = KB.rcg_norm_batch_kernel(L, cT, psi, c_old, v_old)
     assert torch.equal(norms, again[0]) and torch.equal(rows, again[1])
     done = torch.zeros(B, dtype=torch.bool, device=dev)
-    done[[1, 8, 12]] = True
+    done[list(done_at)] = True
     norms_m, rows_m = KB.rcg_norm_batch_kernel(L, cT, psi, c_old, v_old, done)
     assert torch.equal(norms_m[~done], norms[~done]) and not norms_m[done].any()
     assert torch.equal(rows_m[:, ~done], rows[:, ~done]) and not rows_m[:, done].any()
+    kw = dict(compute_dtype=ldtype)
+    for b in range(B):
+        cnt = cT[:, b].contiguous()
+        one, one_rows = K.rcg_norm_kernel(L, cnt, psi[b], float(c_old[b]), v_old[b],
+                                          with_rows=True, **kw)
+        assert float(one) == float(norms[b]), b
+        assert torch.equal(one_rows, rows[:, b]), b
     for r_old in (rows, None):
         col, s = KB.rcg_update_batch_kernel(L, cT, r_old, c_new, v_new)
         col_w, _ = KB.rcg_update_batch_plain(L, cT, r_old, c_new, v_new)
@@ -356,9 +381,18 @@ def test_cuda_batch_kernels_match_plain(cuda_device, ldtype, G):
         assert torch.equal(col_m[~done], col[~done]) and torch.equal(s_m[~done], s[~done])
         assert not col_m[done].any() and not s_m[done].any()
         for b in range(B):
-            cnt, kw = cT[:, b].contiguous(), dict(compute_dtype=ldtype)
-            one = K.rcg_norm_kernel(L, cnt, psi[b], float(c_old[b]), v_old[b], **kw)
-            assert float(one) == float(norms[b]), b
+            cnt = cT[:, b].contiguous()
             old = (None, None) if r_old is None else (float(c_old[b]), v_old[b])
             c1, s1 = K.rcg_update_kernel(L, cnt, *old, float(c_new[b]), v_new[b], **kw)
             assert torch.equal(c1, col[b]) and float(s1) == float(s[b]), b
+
+
+@pytest.mark.cuda
+def test_cuda_f64_rep_norm_build_runs_16_warps_an_sm(cuda_device):
+    """K3's float64 one-chunk build at the bootstrap cell's 512 groups:
+    the rows, psi and v in shared memory leave a thread no spill and an SM
+    16 resident warps."""
+    info = KB.kernel_info("rcg_norm_batch", "f64_f64", 512, torch.cuda.current_device())
+    assert info["spill_bytes"] == 0, info
+    assert info["warps_per_sm"] >= 16, info
+    assert info["tile_rows"] >= 1, info
